@@ -1,0 +1,155 @@
+"""Per-input API: the exact host path, one input at a time.
+
+Port of `bitcoinconsensus_tpu/api.py` on the Python engine: ``verify``,
+``verify_with_flags``, ``verify_with_spent_outputs``, the transport-level
+error enum, the libconsensus flag subset restriction and the check order of
+the reference C ABI shim (`script/bitcoinconsensus.cpp:74-129`: flags →
+deserialize → index → size). Every signature here is checked by the host
+oracle `crypto/secp_host.py`; the batched device path is
+`models/batch.verify_batch`, held bit-identical to this module.
+"""
+
+from __future__ import annotations
+
+import enum
+from typing import Optional, Sequence, Tuple
+
+from .core.flags import (
+    ALL_FLAG_BITS,
+    LIBCONSENSUS_FLAGS,
+    VERIFY_ALL_EXTENDED,
+    VERIFY_ALL_LIBCONSENSUS,
+    VERIFY_TAPROOT,
+)
+from .core.interpreter import TransactionSignatureChecker, verify_script
+from .core.script_error import ScriptError
+from .core.serialize import SerializationError
+from .core.sighash import PrecomputedTxData
+from .core.tx import Tx, TxOut
+
+__all__ = [
+    "Error",
+    "ConsensusError",
+    "verify",
+    "verify_with_flags",
+    "verify_with_spent_outputs",
+    "VERIFY_ALL_LIBCONSENSUS",
+    "VERIFY_ALL_EXTENDED",
+]
+
+
+class Error(enum.IntEnum):
+    """Transport-level errors (bitcoinconsensus.h:38-46 + lib.rs:172-185)."""
+
+    ERR_OK = 0
+    ERR_TX_INDEX = 1
+    ERR_TX_SIZE_MISMATCH = 2
+    ERR_TX_DESERIALIZE = 3
+    ERR_AMOUNT_REQUIRED = 4
+    ERR_INVALID_FLAGS = 5
+    # Script-level failure (the Rust crate's ERR_SCRIPT, lib.rs:121).
+    ERR_SCRIPT = 6
+
+
+class ConsensusError(Exception):
+    """Raised by verify* on failure; carries the transport error and the
+    ScriptError (which the reference swallows)."""
+
+    def __init__(self, code: Error, script_error: Optional[ScriptError] = None):
+        self.code = code
+        self.script_error = script_error
+        detail = f", script_error={script_error.name}" if script_error is not None else ""
+        super().__init__(f"{code.name}{detail}")
+
+
+def _verify_input(
+    spent_output_script: bytes,
+    amount: int,
+    spending_transaction: bytes,
+    input_index: int,
+    flags: int,
+    allowed_flags: int,
+    spent_outputs: Optional[Sequence[TxOut]] = None,
+) -> None:
+    """Shared body of the verify entry points; mirrors
+    bitcoinconsensus.cpp:79-101 verify_script check order."""
+    if flags & ~allowed_flags:
+        raise ConsensusError(Error.ERR_INVALID_FLAGS)
+
+    try:
+        tx = Tx.deserialize(spending_transaction)
+        # nIn is unsigned in the reference ABI: negative is out of range.
+        if input_index < 0 or input_index >= len(tx.vin):
+            raise ConsensusError(Error.ERR_TX_INDEX)
+        if len(tx.serialize()) != len(spending_transaction):
+            raise ConsensusError(Error.ERR_TX_SIZE_MISMATCH)
+    except SerializationError:
+        raise ConsensusError(Error.ERR_TX_DESERIALIZE) from None
+
+    if spent_outputs is not None:
+        if len(spent_outputs) != len(tx.vin):
+            raise ConsensusError(Error.ERR_TX_INDEX)
+        txdata = PrecomputedTxData(tx, list(spent_outputs))
+    else:
+        if flags & VERIFY_TAPROOT:
+            # BIP341 sighash needs all spent outputs (interpreter.cpp:1512).
+            raise ConsensusError(Error.ERR_AMOUNT_REQUIRED)
+        txdata = PrecomputedTxData(tx)
+
+    checker = TransactionSignatureChecker(tx, input_index, amount, txdata)
+    ok, script_err = verify_script(
+        tx.vin[input_index].script_sig,
+        spent_output_script,
+        tx.vin[input_index].witness,
+        flags,
+        checker,
+    )
+    if not ok:
+        raise ConsensusError(Error.ERR_SCRIPT, script_err)
+
+
+def verify(
+    spent_output: bytes,
+    amount: int,
+    spending_transaction: bytes,
+    input_index: int,
+) -> None:
+    """verify() (src/lib.rs:103-111): VERIFY_ALL under libconsensus flags.
+    Raises ConsensusError on failure; returns None on success."""
+    _verify_input(spent_output, amount, spending_transaction, input_index,
+                  VERIFY_ALL_LIBCONSENSUS, allowed_flags=LIBCONSENSUS_FLAGS)
+
+
+def verify_with_flags(
+    spent_output_script: bytes,
+    amount: int,
+    spending_transaction: bytes,
+    input_index: int,
+    flags: int,
+) -> None:
+    """verify_with_flags (src/lib.rs:113-139): only libconsensus flag bits
+    are accepted, as in the reference C ABI."""
+    _verify_input(spent_output_script, amount, spending_transaction,
+                  input_index, flags, allowed_flags=LIBCONSENSUS_FLAGS)
+
+
+def verify_with_spent_outputs(
+    spending_transaction: bytes,
+    input_index: int,
+    spent_outputs: Sequence[Tuple[int, bytes]],
+    flags: int = VERIFY_ALL_EXTENDED,
+) -> None:
+    """All spent outputs supplied, so taproot is reachable. `spent_outputs`
+    is a sequence of (amount, scriptPubKey), one per input."""
+    outs = [TxOut(amt, spk) for amt, spk in spent_outputs]
+    if input_index < 0 or input_index >= len(outs):
+        raise ConsensusError(Error.ERR_TX_INDEX)
+    _verify_input(
+        outs[input_index].script_pubkey,
+        outs[input_index].value,
+        spending_transaction,
+        input_index,
+        flags,
+        allowed_flags=ALL_FLAG_BITS,
+        spent_outputs=outs,
+    )

@@ -1,0 +1,349 @@
+"""Batched signature verification on one device: ECDSA, Schnorr and taproot
+tweak checks in one mixed dispatch.
+
+The port of `bitcoinconsensus_tpu/crypto/jax_backend.py`. All three check
+kinds reduce to R = a·G + b·P compared against a target:
+
+    kind      a        b      P            accept
+    ECDSA     m/s      r/s    pubkey       R.x ∈ {r, r+n} (mod p)
+    Schnorr   s        n-e    lift_x(pk)   R.x == r and even(R.y)
+    tweak     t        1      lift_x(pki)  R.x == out_x and parity matches
+
+The host parses and range-checks each check, inverts the ECDSA s values in
+one batch mod n, hashes the BIP340 challenges with hashlib, splits b by the
+GLV endomorphism and packs each lane as 4 x 32 bytes plus 6 flags. The
+device side is `ops/verify_tiles.verify_tiles`: the hand-written CUDA
+kernel on a card, its plain torch version on the CPU. Lanes the kernel
+flags `needs_host` (an equal-points case of its fast additions, reached
+only by crafted scalars) are resolved exactly by the host oracle
+`crypto/secp_host.py`; that fixup is part of the kernel's contract.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import defaultdict
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..ops.limbs import P_INT
+from ..ops.curve import G_X
+from ..ops.verify_tiles import verify_tiles
+from ..utils.hashes import tagged_hash
+from .glv import split_lambda
+from .secp_host import N, parse_der_lax
+
+__all__ = ["SigCheck", "TorchSecpVerifier"]
+
+
+class SigCheck:
+    """One deferred signature-algebra check (host-parsed, device-verified).
+
+    kind: 'ecdsa'   -> data = (pubkey_bytes, sig_der_no_hashtype, msg32)
+          'schnorr' -> data = (pubkey32, sig64, msg32)
+          'tweak'   -> data = (tweaked32, parity, internal32, tweak32)
+    """
+
+    __slots__ = ("kind", "data")
+
+    def __init__(self, kind: str, data: Tuple):
+        if kind not in ("ecdsa", "schnorr", "tweak"):
+            raise ValueError(f"unknown check kind {kind!r}")
+        self.kind = kind
+        self.data = data
+
+
+def _batch_inv_mod_n(vals: List[int]) -> List[int]:
+    """Montgomery batch inversion mod the group order n (one modexp total)."""
+    prefix = []
+    acc = 1
+    for v in vals:
+        acc = acc * v % N
+        prefix.append(acc)
+    inv = pow(acc, N - 2, N)
+    out = [0] * len(vals)
+    for i in range(len(vals) - 1, -1, -1):
+        out[i] = inv * (prefix[i - 1] if i else 1) % N
+        inv = inv * vals[i] % N
+    return out
+
+
+class _Lane:
+    """Host-parsed check, ready for byte packing.
+
+    a: fixed-base scalar (< n); the variable-base scalar b ships GLV-split
+    as (|b1|, |b2|, neg1, neg2) with |bi| < 2^128. px: the point's x
+    coordinate; want_odd: parity of the y lift; t1: the x-coordinate
+    target; has_t2 marks the ECDSA r+n secondary target (only when
+    r + n < p); parity constrains R.y (-1 don't care / 0 even / 1 odd).
+    """
+
+    __slots__ = (
+        "valid", "a", "b1", "b2", "neg1", "neg2", "px", "want_odd", "t1",
+        "has_t2", "parity",
+    )
+
+    def __init__(self):
+        self.valid = False
+        self.a = 0
+        self.b1 = 0
+        self.b2 = 0
+        self.neg1 = 0
+        self.neg2 = 0
+        self.px = G_X
+        self.want_odd = 0
+        self.t1 = 0
+        self.has_t2 = 0
+        self.parity = -1
+
+    def set_b(self, b: int) -> None:
+        self.b1, self.neg1, self.b2, self.neg2 = split_lambda(b)
+
+
+def _host_parse_pubkey(lane: _Lane, pubkey: bytes) -> bool:
+    """Structural half of secp256k1_ec_pubkey_parse (eckey_impl.h): length,
+    prefix, range and (for uncompressed forms) on-curve/hybrid checks. The
+    decompression square root runs on the device."""
+    if len(pubkey) == 33 and pubkey[0] in (2, 3):
+        x = int.from_bytes(pubkey[1:], "big")
+        if x >= P_INT:
+            return False
+        lane.px = x
+        lane.want_odd = 1 if pubkey[0] == 3 else 0
+        return True
+    if len(pubkey) == 65 and pubkey[0] in (4, 6, 7):
+        x = int.from_bytes(pubkey[1:33], "big")
+        y = int.from_bytes(pubkey[33:], "big")
+        if x >= P_INT or y >= P_INT:
+            return False
+        if (y * y - (x * x % P_INT * x + 7)) % P_INT != 0:
+            return False
+        if pubkey[0] == 6 and (y & 1):
+            return False
+        if pubkey[0] == 7 and not (y & 1):
+            return False
+        # y is on-curve, hence exactly the lift of its own parity: the
+        # device recomputes it from (x, want_odd).
+        lane.px, lane.want_odd = x, y & 1
+        return True
+    return False
+
+
+def _prep_ecdsa(lane: _Lane, pubkey: bytes, sig_der: bytes, msg32: bytes):
+    """Host half of CPubKey::Verify (pubkey.cpp:191-207): parse pubkey,
+    lax-DER parse, normalise S. Returns (r, s, m) for the batched inversion,
+    or None."""
+    if not _host_parse_pubkey(lane, pubkey):
+        return None
+    rs = parse_der_lax(sig_der)
+    if rs is None:
+        return None
+    r, s = rs
+    if s > N // 2:
+        s = N - s  # normalise high-S (pubkey.cpp:204)
+    if r == 0 or s == 0:
+        return None
+    lane.t1 = r
+    lane.has_t2 = 1 if r + N < P_INT else 0
+    lane.valid = True
+    return r, s, int.from_bytes(msg32, "big") % N
+
+
+def _prep_schnorr(lane: _Lane, pubkey32: bytes, sig64: bytes, msg32: bytes):
+    """BIP340 verify host half (modules/schnorrsig/main_impl.h:190-237)."""
+    if len(pubkey32) != 32 or len(sig64) != 64:
+        return
+    px = int.from_bytes(pubkey32, "big")
+    if px >= P_INT:
+        return
+    r = int.from_bytes(sig64[:32], "big")
+    s = int.from_bytes(sig64[32:], "big")
+    if r >= P_INT or s >= N:
+        return
+    lane.px = px
+    lane.want_odd = 0  # BIP340 lift_x: even y; the device checks existence
+    lane.a = s
+    lane.t1 = r
+    lane.parity = 0  # require even R.y
+    lane.valid = True
+    e = int.from_bytes(
+        tagged_hash("BIP0340/challenge", sig64[:32] + pubkey32 + msg32), "big"
+    ) % N
+    lane.set_b((N - e) % N)  # (n-e)·P = -e·P
+
+
+def _prep_tweak(lane: _Lane, tweaked32: bytes, parity: int, internal32: bytes,
+                tweak32: bytes):
+    """Taproot commitment check host half (extrakeys/main_impl.h:109-129):
+    Q = P_internal + t·G must equal (tweaked_x, parity)."""
+    px = int.from_bytes(internal32, "big")
+    if px >= P_INT:
+        return
+    t = int.from_bytes(tweak32, "big")
+    if t >= N:
+        return
+    lane.px = px
+    lane.want_odd = 0  # x-only internal key: even-y lift, device-checked
+    lane.a = t
+    lane.set_b(1)
+    # A target >= p never equals a canonical x: the raw compare fails it.
+    lane.t1 = int.from_bytes(tweaked32, "big")
+    lane.parity = parity & 1
+    lane.valid = True
+
+
+class TorchSecpVerifier:
+    """Batched verifier on one device. Large batches are split into
+    CHUNK-lane dispatches; each dispatch pads to the power-of-two ladder
+    of `_pad`, which keeps at least one pad lane in reserve.
+
+    `device=None` means `cuda:0`; without CUDA the constructor raises, and a
+    caller that wants the plain torch version passes `device="cpu"`.
+    """
+
+    MIN_BATCH = 8
+    CHUNK = 1 << 13
+
+    def __init__(self, device=None):
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "TorchSecpVerifier() runs on cuda:0 but CUDA is not "
+                    "available; pass device=\"cpu\" to run the plain torch "
+                    "version on the CPU"
+                )
+            device = "cuda:0"
+        self.device = torch.device(device)
+        self.stats: Dict[str, float] = defaultdict(float)
+        if self.device.type == "cuda":
+            # Set-up, once per verifier: build or load the kernel, upload
+            # the G table and load the module with one launch over pad
+            # lanes, so a verify call's time is the verify's own.
+            verify_tiles(*self.to_device(self._pack_lanes([])))
+            torch.cuda.synchronize(self.device)
+
+    def _pad(self, n: int) -> int:
+        # `n + 1`, not `n`: every padded shape reserves at least one pad lane
+        # (room for a known-answer sentinel lane); chunked drivers slice at
+        # `lane_capacity` (= CHUNK - 1) so full chunks keep one shape.
+        size = self.MIN_BATCH
+        while size < n + 1:
+            size *= 2
+        return size
+
+    @property
+    def lane_capacity(self) -> int:
+        """Real lanes per chunk dispatch: one short of CHUNK."""
+        return self.CHUNK - 1
+
+    def _prep_lanes(self, checks: Sequence[SigCheck]) -> List[_Lane]:
+        lanes = [_Lane() for _ in checks]
+        ecdsa_pending = []  # (lane, r, s, m)
+        for lane, chk in zip(lanes, checks, strict=True):
+            if chk.kind == "ecdsa":
+                got = _prep_ecdsa(lane, *chk.data)
+                if got is not None:
+                    ecdsa_pending.append((lane, *got))
+            elif chk.kind == "schnorr":
+                _prep_schnorr(lane, *chk.data)
+            else:
+                _prep_tweak(lane, *chk.data)
+        if ecdsa_pending:
+            sinvs = _batch_inv_mod_n([s for _, _, s, _ in ecdsa_pending])
+            for (lane, r, _s, m), sinv in zip(ecdsa_pending, sinvs, strict=True):
+                lane.a = m * sinv % N  # u1
+                lane.set_b(r * sinv % N)  # u2
+        return lanes
+
+    def _pack_lanes(self, lanes: List[_Lane]):
+        """The packed 7-tuple as numpy arrays, padded to `_pad(len(lanes))`:
+        fields (B, 4, 32) uint8 LE (a, |b1|‖|b2|, px, t1), int32 want_odd,
+        parity, has_t2, neg1, neg2, and bool valid. Pad lanes are invalid."""
+        n = len(lanes)
+        size = self._pad(n)
+        raw = bytearray(size * 4 * 32)
+        pos = 0
+        for lane in lanes:
+            raw[pos : pos + 32] = lane.a.to_bytes(32, "little")
+            raw[pos + 32 : pos + 48] = lane.b1.to_bytes(16, "little")
+            raw[pos + 48 : pos + 64] = lane.b2.to_bytes(16, "little")
+            raw[pos + 64 : pos + 96] = lane.px.to_bytes(32, "little")
+            raw[pos + 96 : pos + 128] = lane.t1.to_bytes(32, "little")
+            pos += 128
+        fields = np.frombuffer(raw, dtype=np.uint8).reshape(size, 4, 32)
+
+        def flag(get, pad_value):
+            arr = np.fromiter((get(l) for l in lanes), dtype=np.int32, count=n)
+            return np.concatenate([arr, np.full(size - n, pad_value, np.int32)])
+
+        want_odd = flag(lambda l: l.want_odd, 0)
+        parity = flag(lambda l: l.parity, -1)
+        has_t2 = flag(lambda l: l.has_t2, 0)
+        neg1 = flag(lambda l: l.neg1, 0)
+        neg2 = flag(lambda l: l.neg2, 0)
+        valid = np.zeros(size, dtype=bool)
+        valid[:n] = [lane.valid for lane in lanes]
+        return fields, want_odd, parity, has_t2, neg1, neg2, valid
+
+    def to_device(self, args) -> Tuple[torch.Tensor, ...]:
+        """Packed numpy 7-tuple -> tensors on this verifier's device."""
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                     for a in args)
+
+    def verify_checks(self, checks: Sequence[SigCheck]) -> np.ndarray:
+        """Verify a mixed batch; returns a bool array aligned with `checks`.
+        Every chunk is dispatched before the first result is read.
+
+        `self.stats` accumulates where the time went: host lane prep and
+        packing (`lane_prep_s`), host time spent waiting for the results to
+        reach the host (`device_wait_s`), device time of the
+        kernel by CUDA events (`kernel_ms`, CUDA only), the host fixup
+        (`fixup_s`), and the lane, dispatch and fixup counts."""
+        out = np.zeros(len(checks), dtype=bool)
+        pending = []
+        cap = self.lane_capacity
+        cuda = self.device.type == "cuda"
+        for start in range(0, len(checks), cap):
+            sub = checks[start : start + cap]
+            t0 = time.perf_counter()
+            args = self.to_device(self._pack_lanes(self._prep_lanes(sub)))
+            self.stats["lane_prep_s"] += time.perf_counter() - t0
+            events = None
+            if cuda:
+                events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                events[0].record()
+            res = verify_tiles(*args)
+            if cuda:
+                events[1].record()
+            pending.append((start, len(sub), res, events))
+            self.stats["lanes"] += len(sub)
+            self.stats["dispatches"] += 1
+        for start, count, (ok, needs), events in pending:
+            t0 = time.perf_counter()
+            ok = ok[:count].cpu().numpy()
+            needs = needs[:count].cpu().numpy()
+            self.stats["device_wait_s"] += time.perf_counter() - t0
+            if events is not None:
+                self.stats["kernel_ms"] += events[0].elapsed_time(events[1])
+            out[start : start + count] = ok
+            # Exceptional group-law lanes (crafted scalar collisions): the
+            # fast device adds deferred them; resolve exactly on the host.
+            t0 = time.perf_counter()
+            for i in np.nonzero(needs)[0]:
+                out[start + int(i)] = self._host_check(checks[start + int(i)])
+                self.stats["fixups"] += 1
+            self.stats["fixup_s"] += time.perf_counter() - t0
+        return out
+
+    def _host_check(self, chk: SigCheck) -> bool:
+        """Exact host resolution of one check (pure-Python oracle)."""
+        from . import secp_host
+
+        if chk.kind == "ecdsa":
+            return secp_host.verify_ecdsa(*chk.data)
+        if chk.kind == "schnorr":
+            return secp_host.verify_schnorr(*chk.data)
+        return secp_host.xonly_tweak_add_check(*chk.data)

@@ -1,0 +1,351 @@
+"""`verify_batch()`: many inputs, one signature dispatch on the device.
+
+Port of the Python-engine path of `bitcoinconsensus_tpu/models/batch.py`.
+The reference parallelises block validation with one `CScriptCheck` per
+input on a thread pool (`checkqueue.h:29-163`); here the parallel axis is
+the signature, through the checker-override seam the reference provides
+(`interpreter.h:275-301`, `script/sigcache.cpp:101-122`):
+
+1. Every input's scripts run on the host with a `DeferringSignatureChecker`
+   that records each curve check (ECDSA, Schnorr, taproot tweak) and
+   optimistically reports success; encoding checks still run inline.
+2. The recorded checks of all inputs, deduplicated and filtered through the
+   salted sig cache, resolve in one mixed device dispatch
+   (`crypto/torch_backend.py`).
+3. Inputs whose optimistic guesses were wrong are re-interpreted with the
+   device results as an oracle; checks the corrected control flow discovers
+   (a CHECKMULTISIG cursor, interpreter.cpp:1177-1205) go out as further
+   dispatches until a fixpoint. A round cap falls back to the exact host
+   checker.
+
+Results are bit-identical to the per-input `api` entry points, `Error` and
+`ScriptError` included. A device fault raises; it is not retried on the
+host.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from ..api import Error
+from ..core.flags import ALL_FLAG_BITS, LIBCONSENSUS_FLAGS, VERIFY_TAPROOT
+from ..core.interpreter import TransactionSignatureChecker, verify_script
+from ..core.script_error import ScriptError
+from ..core.serialize import SerializationError
+from ..core.sighash import PrecomputedTxData
+from ..core.tx import Tx, TxOut
+from ..crypto.torch_backend import SigCheck, TorchSecpVerifier
+from .sigcache import (
+    ScriptExecutionCache,
+    SigCache,
+    default_script_cache,
+    default_sig_cache,
+)
+
+__all__ = ["BatchItem", "BatchResult", "DeferringSignatureChecker", "verify_batch"]
+
+MAX_ROUNDS = 24  # > MAX_PUBKEYS_PER_MULTISIG cursor retries
+
+
+@dataclass
+class BatchItem:
+    """One input verification request.
+
+    `spent_outputs` (all prevouts of the tx, in input order) unlocks the
+    taproot path; with only `spent_output_script` + `amount` the item has
+    the reach of the reference C ABI.
+    """
+
+    spending_tx: bytes
+    input_index: int
+    flags: int
+    spent_output_script: Optional[bytes] = None
+    amount: int = 0
+    spent_outputs: Optional[Sequence[Tuple[int, bytes]]] = None
+
+
+@dataclass
+class BatchResult:
+    ok: bool
+    error: Error
+    script_error: Optional[ScriptError] = None
+
+    @staticmethod
+    def success() -> "BatchResult":
+        return BatchResult(True, Error.ERR_OK, ScriptError.OK)
+
+
+class DeferringSignatureChecker(TransactionSignatureChecker):
+    """Records curve checks and answers from a known-results oracle,
+    optimistically succeeding on unknowns; the sighash and all encoding
+    checks still run inline. `unknown` counts oracle misses: zero means the
+    verdict produced is exact."""
+
+    def __init__(self, tx, n_in, amount, txdata, known=None):
+        super().__init__(tx, n_in, amount, txdata)
+        self.recorded: List[SigCheck] = []
+        self.known = known if known is not None else {}
+        self.unknown = 0
+
+    def _resolve(self, kind: str, data: Tuple) -> bool:
+        res = self.known.get((kind, data))
+        if res is None:
+            self.unknown += 1
+            self.recorded.append(SigCheck(kind, data))
+            return True
+        return res
+
+    def verify_ecdsa(self, sig_der: bytes, pubkey: bytes, sighash: bytes) -> bool:
+        return self._resolve("ecdsa", (pubkey, sig_der, sighash))
+
+    def verify_schnorr(self, sig64: bytes, pubkey32: bytes, sighash: bytes) -> bool:
+        return self._resolve("schnorr", (pubkey32, sig64, sighash))
+
+    def verify_taproot_tweak(self, q: bytes, parity: int, p: bytes, t: bytes) -> bool:
+        return self._resolve("tweak", (q, parity, p, t))
+
+
+@dataclass
+class _Prepared:
+    result: Optional[BatchResult] = None  # set when failed before batching
+    tx: Optional[Tx] = None
+    txdata: Optional[PrecomputedTxData] = None
+    script_pubkey: bytes = b""
+    amount: int = 0
+    optimistic: Optional[Tuple[bool, ScriptError]] = None
+    checks: List[SigCheck] = field(default_factory=list)
+    wtxid: Optional[bytes] = None
+
+
+def _spent_memo_entry(item: BatchItem, spent_memo: Dict[int, Tuple]):
+    """(List[TxOut], digest) for item.spent_outputs, memoised by the
+    sequence's identity: the inputs of one tx share one conversion and
+    digest. Identity keying is safe within one call (items hold the refs)."""
+    key = id(item.spent_outputs)
+    ent = spent_memo.get(key)
+    if ent is None:
+        outs = [TxOut(a, s) for a, s in item.spent_outputs]
+        ent = (outs, ScriptExecutionCache.spent_digest(item.spent_outputs))
+        spent_memo[key] = ent
+    return ent
+
+
+def _prepare(
+    item: BatchItem,
+    tx_cache: Dict[bytes, Tuple[Tx, bool]],
+    txdata_cache: Dict[Tuple, PrecomputedTxData],
+    spent_memo: Dict[int, Tuple],
+) -> _Prepared:
+    """Transport-level validation in the order of bitcoinconsensus.cpp:79-101
+    (flags -> deserialize -> index -> size). PrecomputedTxData is built once
+    per (tx, prevouts digest)."""
+    prep = _Prepared()
+    allowed = ALL_FLAG_BITS if item.spent_outputs is not None else LIBCONSENSUS_FLAGS
+    if item.flags & ~allowed:
+        prep.result = BatchResult(False, Error.ERR_INVALID_FLAGS)
+        return prep
+
+    try:
+        cached = tx_cache.get(item.spending_tx)
+        if cached is None:
+            tx = Tx.deserialize(item.spending_tx)
+            size_ok = len(tx.serialize()) == len(item.spending_tx)
+            tx_cache[item.spending_tx] = (tx, size_ok)
+        else:
+            tx, size_ok = cached
+        # Index before size, as the reference (bitcoinconsensus.cpp:89-92);
+        # nIn is unsigned there, so a negative index is out of range.
+        if item.input_index < 0 or item.input_index >= len(tx.vin):
+            prep.result = BatchResult(False, Error.ERR_TX_INDEX)
+            return prep
+        if not size_ok:
+            prep.result = BatchResult(False, Error.ERR_TX_SIZE_MISMATCH)
+            return prep
+    except SerializationError:
+        prep.result = BatchResult(False, Error.ERR_TX_DESERIALIZE)
+        return prep
+
+    if item.spent_outputs is not None:
+        spent_outputs, digest = _spent_memo_entry(item, spent_memo)
+        if len(spent_outputs) != len(tx.vin):
+            prep.result = BatchResult(False, Error.ERR_TX_INDEX)
+            return prep
+        tkey = (id(tx), digest)
+        txdata = txdata_cache.get(tkey)
+        if txdata is None:
+            txdata = PrecomputedTxData(tx, spent_outputs)
+            txdata_cache[tkey] = txdata
+        prep.script_pubkey = spent_outputs[item.input_index].script_pubkey
+        prep.amount = spent_outputs[item.input_index].value
+    else:
+        if item.flags & VERIFY_TAPROOT:
+            prep.result = BatchResult(False, Error.ERR_AMOUNT_REQUIRED)
+            return prep
+        tkey = (id(tx), None)
+        txdata = txdata_cache.get(tkey)
+        if txdata is None:
+            txdata = PrecomputedTxData(tx)
+            txdata_cache[tkey] = txdata
+        prep.script_pubkey = item.spent_output_script or b""
+        prep.amount = item.amount
+    prep.txdata = txdata
+    prep.tx = tx
+    prep.wtxid = tx.wtxid
+    return prep
+
+
+def _prepare_and_probe(items: Sequence[BatchItem],
+                       script_cache: ScriptExecutionCache):
+    """Prepare every item and probe the script-execution cache: a hit
+    certifies that this exact (wtxid, input, flags, prevouts) succeeded
+    before, so the interpreter and the device are skipped
+    (validation.cpp:1529-1536). Returns (preps, script_keys)."""
+    tx_cache: Dict[bytes, Tuple[Tx, bool]] = {}
+    txdata_cache: Dict[Tuple, PrecomputedTxData] = {}
+    spent_memo: Dict[int, Tuple] = {}
+    preps = [_prepare(item, tx_cache, txdata_cache, spent_memo) for item in items]
+    script_keys: List[Optional[bytes]] = [None] * len(items)
+    for idx, (item, prep) in enumerate(zip(items, preps, strict=True)):
+        if prep.result is not None:
+            continue
+        if item.spent_outputs is not None:
+            digest = _spent_memo_entry(item, spent_memo)[1]
+        else:
+            digest = ScriptExecutionCache.spent_digest(
+                [(item.amount, item.spent_output_script or b"")]
+            )
+        key = script_cache.key_for_input(prep.wtxid, item.input_index,
+                                         item.flags, digest)
+        script_keys[idx] = key
+        if script_cache.contains_key(key):
+            prep.result = BatchResult.success()
+    return preps, script_keys
+
+
+def verify_batch(
+    items: Sequence[BatchItem],
+    verifier: Optional[TorchSecpVerifier] = None,
+    sig_cache: Optional[SigCache] = None,
+    script_cache: Optional[ScriptExecutionCache] = None,
+) -> List[BatchResult]:
+    """Verify many inputs with one device signature dispatch.
+
+    Returns one `BatchResult` per item, bit-identical to the per-input API.
+    `verifier=None` builds a `TorchSecpVerifier()` on cuda:0; pass
+    `TorchSecpVerifier(device="cpu")` to run the plain torch version. The
+    success-only caches default to process-wide instances; pass fresh ones
+    to isolate."""
+    if verifier is None:
+        verifier = TorchSecpVerifier()
+    if sig_cache is None:
+        sig_cache = default_sig_cache()
+    if script_cache is None:
+        script_cache = default_script_cache()
+
+    preps, script_keys = _prepare_and_probe(items, script_cache)
+    known: Dict[Tuple, bool] = {}
+
+    def interpret_deferring(item, prep) -> Tuple[bool, ScriptError, int, List[SigCheck]]:
+        checker = DeferringSignatureChecker(
+            prep.tx, item.input_index, prep.amount, prep.txdata, known=known
+        )
+        ok, err = verify_script(
+            prep.tx.vin[item.input_index].script_sig,
+            prep.script_pubkey,
+            prep.tx.vin[item.input_index].witness,
+            item.flags,
+            checker,
+        )
+        return ok, err, checker.unknown, checker.recorded
+
+    # Phase 1: optimistic interpretation, recording curve checks.
+    for item, prep in zip(items, preps, strict=True):
+        if prep.result is not None:
+            continue
+        ok, err, _unk, checks = interpret_deferring(item, prep)
+        prep.optimistic = (ok, err)
+        prep.checks = checks
+
+    def resolve(checks: Sequence[SigCheck]) -> None:
+        """Fill `known` for every check: sig-cache probe, then ONE
+        deduplicated device dispatch; successes feed the cache."""
+        todo: List[SigCheck] = []
+        for chk in checks:
+            key = (chk.kind, chk.data)
+            if key in known:
+                continue
+            known[key] = False  # placeholder until probed/dispatched
+            todo.append(chk)
+        if not todo:
+            return
+        fresh: List[Tuple[SigCheck, bytes]] = []
+        for chk, ck in zip(todo, sig_cache.keys_for_checks(todo), strict=True):
+            if sig_cache.contains_key(ck):
+                known[(chk.kind, chk.data)] = True
+            else:
+                fresh.append((chk, ck))
+        if fresh:
+            run_res = verifier.verify_checks([c for c, _ in fresh])
+            for (chk, ck), r in zip(fresh, run_res, strict=True):
+                known[(chk.kind, chk.data)] = bool(r)
+                if r:  # success-only insertion, like the reference
+                    sig_cache.add_key(ck)
+
+    # Phase 2: one deduplicated dispatch for every recorded check.
+    resolve([chk for prep in preps for chk in prep.checks])
+
+    # Phase 3: accept verdicts whose guesses all held; re-interpret the rest
+    # against the oracle until a fixpoint, dispatching what they discover.
+    final: Dict[int, Tuple[bool, ScriptError]] = {}
+    pending: List[int] = []
+    for idx, prep in enumerate(preps):
+        if prep.result is not None:
+            continue
+        if all(known[(c.kind, c.data)] for c in prep.checks):
+            final[idx] = prep.optimistic
+        else:
+            pending.append(idx)
+
+    for _round in range(MAX_ROUNDS):
+        if not pending:
+            break
+        new_checks: List[SigCheck] = []
+        still: List[int] = []
+        for idx in pending:
+            ok, err, unknown, recorded = interpret_deferring(items[idx], preps[idx])
+            if unknown == 0:
+                final[idx] = (ok, err)  # every oracle read was exact
+            else:
+                new_checks.extend(recorded)
+                still.append(idx)
+        if still:
+            resolve(new_checks)
+        pending = still
+
+    for idx in pending:  # round cap hit: exact host checker
+        item, prep = items[idx], preps[idx]
+        checker = TransactionSignatureChecker(
+            prep.tx, item.input_index, prep.amount, prep.txdata
+        )
+        final[idx] = verify_script(
+            prep.tx.vin[item.input_index].script_sig,
+            prep.script_pubkey,
+            prep.tx.vin[item.input_index].witness,
+            item.flags,
+            checker,
+        )
+
+    out: List[BatchResult] = []
+    for idx, prep in enumerate(preps):
+        if prep.result is not None:
+            out.append(prep.result)
+            continue
+        ok, err = final[idx]
+        if ok:
+            if script_keys[idx] is not None:
+                script_cache.add_key(script_keys[idx])
+            out.append(BatchResult.success())
+        else:
+            out.append(BatchResult(False, Error.ERR_SCRIPT, err))
+    return out

@@ -1,0 +1,310 @@
+"""The batched verify kernel: R = a·G + (±b1 ± λ·b2)·P per lane.
+
+Counterpart of `bitcoinconsensus_tpu/ops/pallas_kernel.py::verify_tiles`.
+Three pieces live here:
+
+- `verify_tiles(...)`, the wrapper. For tensors on a CUDA device it checks
+  them and launches the hand-written kernel `csrc/verify_tiles.cu` (built at
+  first use by `_build.py`), counting each launch in `verify_tiles.launches`;
+  a launch that fails raises. For tensors on the CPU it runs the plain
+  version.
+- `verify_tiles_reference(...)`, the plain version in the port's torch ops
+  (`limbs.py`, `curve.py`), step for step the TPU kernel's schedule
+  (`pallas_kernel.py:244-428`), with a per-lane Fermat inverse in place of
+  the tile-wide batch inverse (affine coordinates are unique, so verdicts
+  do not change).
+- The preamble (`_signed_digits128`, t1 + n), shared with the plain version;
+  the CUDA kernel does the same per lane.
+
+Inputs are the verifier's packed 7-tuple: `fields` (B, 4, 32) uint8
+little-endian (a, |b1|‖|b2|, px, t1), then int32 (B,) `want_odd`,
+`parity_req`, `has_t2`, `neg1`, `neg2` and bool (B,) `valid`. Outputs are
+(B,) bool `(ok, needs_host)`; `needs_host` marks an equal-points case the
+fast adds do not compute, which the caller must resolve on the host.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from ..crypto.secp_host import N as _N_INT
+from . import _build
+from .curve import (
+    G_WINDOW_BITS,
+    G_WINDOWS,
+    _BETA_LIMBS,
+    _GX_LIMBS,
+    _GY_LIMBS,
+    _digits,
+    _digits128,
+    _inf_like,
+    _ones_like,
+    _select,
+    g_table,
+    jacobian_add_flagged,
+    jacobian_double,
+    jacobian_madd_flagged,
+    jacobian_madd_flagged_ratio,
+)
+from .gen_gtable import affine_table
+from .limbs import (
+    MASK,
+    NLIMB,
+    _col,
+    bytes_to_limbs,
+    fe_add,
+    fe_canon,
+    fe_inv_chain,
+    fe_is_zero,
+    fe_mul,
+    fe_mul_small,
+    fe_sqr,
+    fe_sqrt_chain,
+    fe_sub,
+    int_to_limbs,
+)
+
+__all__ = ["verify_tiles", "verify_tiles_reference", "SGLV_WINDOWS", "SGLV_WIDTH"]
+
+# Signed 5-bit windows over the 128-bit GLV halves: 26 windows of
+# (5 doublings + 2 mixed adds); digits in [-16, 15], table {1..16}·P.
+SGLV_WINDOWS = 26
+SGLV_WIDTH = 5
+
+_SEVEN = int_to_limbs(7)
+_N_LIMBS = int_to_limbs(_N_INT)
+
+
+def _signed_digits128(limbs10: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(10, B) limbs of a value < 2^128 -> ((26, B) |digit|, (26, B) sign)
+    with digit ∈ [-16, 15] and sum digit_i·32^i equal to the value. The
+    top window never carries out (bits 125..127 + carry <= 8 < 16)."""
+    raw = _digits128(limbs10, count=SGLV_WINDOWS, width=SGLV_WIDTH)
+    carry = torch.zeros_like(raw[0])
+    ds = []
+    for w in range(SGLV_WINDOWS):
+        t = raw[w] + carry
+        neg = t >= 16
+        carry = neg.to(torch.int32)
+        ds.append(torch.where(neg, t - 32, t))
+    ds = torch.stack(ds)
+    return ds.abs(), (ds < 0).to(torch.int32)
+
+
+def _preamble(fields: torch.Tensor):
+    """Byte unpack, window digits and the t1 + n secondary target."""
+    a = bytes_to_limbs(fields[:, 0])
+    b1 = bytes_to_limbs(fields[:, 1, :16], nlimb=10)  # GLV halves
+    b2 = bytes_to_limbs(fields[:, 1, 16:], nlimb=10)
+    px = bytes_to_limbs(fields[:, 2])
+    t1 = bytes_to_limbs(fields[:, 3])
+    da = _digits(a, G_WINDOW_BITS, G_WINDOWS)  # (32, B)
+    db1, ds1 = _signed_digits128(b1)  # (26, B) each
+    db2, ds2 = _signed_digits128(b2)
+    # t1 ships RAW (exact 13-bit limbs from bytes): a target >= p must never
+    # equal a canonical x, so it is not reduced. t1 + n is only used when
+    # has_t2 certifies r + n < p.
+    t1n = fe_canon(t1 + _col(_N_LIMBS, t1), bounds=[2 * MASK] * NLIMB)
+    return px, t1, t1n, da, db1, ds1, db2, ds2
+
+
+def _pick(table: torch.Tensor, digit: torch.Tensor) -> torch.Tensor:
+    """Row digit-1 of a per-lane (16, 20, B) table -> (20, B); lanes with
+    digit 0 read row 0 and are not applied by the caller."""
+    idx = (digit - 1).clamp(min=0).long()
+    lanes = torch.arange(table.shape[-1], device=table.device)
+    return table[idx, :, lanes].T
+
+
+def verify_tiles_reference(fields, want_odd, parity_req, has_t2, neg1, neg2,
+                           valid) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of the verify kernel (same arguments, same
+    outputs), on whatever device the tensors lie."""
+    px, t1, t1n, da, db1, ds1, db2, ds2 = _preamble(fields)
+    want_odd = want_odd.to(torch.int32)
+    parity_req = parity_req.to(torch.int32)
+    has_t2 = has_t2.to(torch.int32)
+    neg1i = neg1.to(torch.int32)
+    neg2i = neg2.to(torch.int32)
+    valid = valid.to(torch.int32) != 0
+
+    # -- lift P's y from (x, parity): y = sqrt(x^3 + 7), flip to parity -----
+    rhs = fe_add(fe_mul(fe_sqr(px), px), _col(_SEVEN, px))
+    ycand = fe_canon(fe_sqrt_chain(rhs))
+    sq_ok = fe_is_zero(fe_sub(fe_mul(ycand, ycand), rhs))
+    odd = (ycand[0] & 1) == 1
+    yneg = fe_sub(torch.zeros_like(ycand), ycand)
+    flip = odd != (want_odd == 1)
+    py = torch.where(flip[None], yneg, ycand)
+    valid = valid & sq_ok
+    # Invalid (off-curve) lanes run on G; their verdicts stay masked.
+    px = torch.where(valid[None], px, _col(_GX_LIMBS, px))
+    py = torch.where(valid[None], py, _col(_GY_LIMBS, py))
+
+    # -- per-lane table {1..16}·P, renormalised to one global Z ------------
+    ones = _ones_like(px)
+    needs = torch.zeros_like(valid)
+    TX, TY = [px], [py]
+    ratios = [None, fe_mul_small(py, 2)]  # Z_1 = 2·py·1 (Z_0 = 1)
+    X, Y, Z = jacobian_double(px, py, ones)
+    TX.append(X)
+    TY.append(Y)
+    for _k in range(2, 16):
+        X, Y, Z, _inf, ndbl, ratio = jacobian_madd_flagged_ratio(
+            X, Y, Z, px, py, inf1=False
+        )
+        TX.append(X)
+        TY.append(Y)
+        ratios.append(ratio)
+        needs = needs | ndbl
+    # Rescale rows 14..0 to row 15's Z: c_k = prod_{j=k+1..15} ratio_j.
+    c = None
+    for k in range(14, -1, -1):
+        c = ratios[k + 1] if c is None else fe_mul(c, ratios[k + 1])
+        c2 = fe_sqr(c)
+        TX[k] = fe_mul(TX[k], c2)
+        TY[k] = fe_mul(TY[k], fe_mul(c2, c))
+    global_z = c
+    TX, TY = torch.stack(TX), torch.stack(TY)  # (16, 20, B)
+
+    # -- (±b1 ± λ·b2)·P: 26 signed windows on the global-Z curve ----------
+    beta = _col(_BETA_LIMBS, px)
+
+    def madd_step(R, r_inf, nh, d, sign, selx, sely):
+        sely = torch.where((sign == 1)[None],
+                           fe_sub(torch.zeros_like(sely), sely), sely)
+        Xa, Ya, Za, inf_a, nd = jacobian_madd_flagged(*R, selx, sely, inf1=r_inf)
+        app = d > 0
+        R = _select(app, (Xa, Ya, Za), R)
+        return R, torch.where(app, inf_a, r_inf), nh | (app & nd)
+
+    R = _inf_like(px)
+    r_inf = torch.ones_like(valid)
+    for i in range(SGLV_WINDOWS):
+        w = SGLV_WINDOWS - 1 - i
+        for _ in range(5):
+            R = jacobian_double(*R)  # doublings preserve infinity
+        d1 = db1[w]
+        R, r_inf, needs = madd_step(R, r_inf, needs, d1, ds1[w] ^ neg1i,
+                                    _pick(TX, d1), _pick(TY, d1))
+        d2 = db2[w]
+        R, r_inf, needs = madd_step(R, r_inf, needs, d2, ds2[w] ^ neg2i,
+                                    fe_mul(_pick(TX, d2), beta), _pick(TY, d2))
+    X, Y, Z = R
+    Z = fe_mul(Z, global_z)  # back to the true curve
+
+    # -- a·G: 32 windows against the affine table ----------------------------
+    gx, gy = g_table(px.device)
+    Rg = _inf_like(px)
+    rg_inf = torch.ones_like(valid)
+    for i in range(G_WINDOWS):
+        d = da[i]
+        idx = (d - 1).clamp(min=0).long()
+        Xa, Ya, Za, inf_a, nd = jacobian_madd_flagged(
+            *Rg, gx[i][idx].T, gy[i][idx].T, inf1=rg_inf
+        )
+        app = d > 0
+        Rg = _select(app, (Xa, Ya, Za), Rg)
+        rg_inf = torch.where(app, inf_a, rg_inf)
+        needs = needs | (app & nd)
+
+    X, Y, Z, inf_mask, nd_join = jacobian_add_flagged(
+        X, Y, Z, *Rg, rg_inf, inf1=r_inf
+    )
+    needs = (needs | nd_join) & valid  # invalid lanes never defer
+
+    # -- affine + accept --------------------------------------------------------
+    zi = fe_inv_chain(Z)
+    zi2 = fe_sqr(zi)
+    x = fe_canon(fe_mul(X, zi2))
+    y = fe_canon(fe_mul(Y, fe_mul(zi2, zi)))
+    ok_x = (x == t1).all(dim=0) | ((has_t2 == 1) & (x == t1n).all(dim=0))
+    y_odd = (y[0] & 1) == 1
+    par_ok = (parity_req < 0) | (y_odd == (parity_req == 1))
+    ok = valid & ~inf_mask & ok_x & par_ok & ~needs
+    return ok, needs
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel.
+
+_gtab_lock = threading.Lock()
+_gtab: Dict[torch.device, torch.Tensor] = {}
+
+
+def gtable_words(device: torch.device) -> torch.Tensor:
+    """The G window table as canonical affine words, (32, 255, 2, 8) int32
+    holding little-endian uint32 words, on `device` (built once per
+    device)."""
+    device = torch.device(device)
+    with _gtab_lock:
+        if device not in _gtab:
+            raw = b"".join(
+                x.to_bytes(32, "little") + y.to_bytes(32, "little")
+                for window in affine_table() for x, y in window
+            )
+            words = np.frombuffer(raw, dtype="<u4").astype(np.uint32)
+            words = words.view(np.int32).reshape(G_WINDOWS, 255, 2, 8)
+            _gtab[device] = torch.from_numpy(words.copy()).to(device)
+        return _gtab[device]
+
+
+def _check(fields, flags, valid) -> int:
+    if fields.dtype != torch.uint8 or fields.dim() != 3 or fields.shape[1:] != (4, 32):
+        raise ValueError(f"fields must be (B, 4, 32) uint8, got "
+                         f"{tuple(fields.shape)} {fields.dtype}")
+    B = fields.shape[0]
+    if valid.dtype != torch.bool or valid.shape != (B,):
+        raise ValueError(f"valid must be ({B},) bool, got {tuple(valid.shape)} "
+                         f"{valid.dtype}")
+    for t in flags:
+        if t.dtype != torch.int32 or t.shape != (B,):
+            raise ValueError(f"flag vectors must be ({B},) int32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    for t in (fields, valid, *flags):
+        if t.device != fields.device:
+            raise ValueError("all inputs must lie on one device")
+        if not t.is_contiguous():
+            raise ValueError("inputs must be contiguous")
+    if fields.data_ptr() % 16:
+        raise ValueError("fields must be 16-byte aligned")
+    return B
+
+
+def _launch(fields, want_odd, parity_req, has_t2, neg1, neg2, valid):
+    B = _check(fields, (want_odd, parity_req, has_t2, neg1, neg2), valid)
+    lib = _build.load("verify_tiles")
+    fn = lib.vt_verify_tiles
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    gtab = gtable_words(fields.device)
+    out = torch.empty((2, B), dtype=torch.int32, device=fields.device)
+    with torch.cuda.device(fields.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(fields.data_ptr(), want_odd.data_ptr(), parity_req.data_ptr(),
+                 has_t2.data_ptr(), neg1.data_ptr(), neg2.data_ptr(),
+                 valid.data_ptr(), gtab.data_ptr(), out.data_ptr(), B, stream)
+    if err != 0:
+        raise RuntimeError(f"verify_tiles kernel launch failed: CUDA error {err}")
+    verify_tiles.launches += 1
+    return out[0] != 0, out[1] != 0
+
+
+def verify_tiles(fields, want_odd, parity_req, has_t2, neg1, neg2, valid):
+    """(ok, needs_host) per lane. CUDA tensors run the hand-written kernel
+    (or raise); CPU tensors run `verify_tiles_reference`."""
+    if fields.is_cuda:
+        return _launch(fields, want_odd, parity_req, has_t2, neg1, neg2, valid)
+    if fields.device.type != "cpu":
+        raise ValueError(f"verify_tiles runs on CUDA or the CPU, not "
+                         f"{fields.device}")
+    return verify_tiles_reference(fields, want_odd, parity_req, has_t2, neg1,
+                                  neg2, valid)
+
+
+verify_tiles.launches = 0

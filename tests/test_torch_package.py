@@ -1,0 +1,91 @@
+"""Package rules of the port: it imports neither jax nor the JAX package,
+runs with jax unavailable, and its entry points default to the card."""
+
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+from bitcoinconsensus_tpu_torch.crypto.torch_backend import TorchSecpVerifier
+from bitcoinconsensus_tpu_torch.ops import verify_tiles as VT
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "bitcoinconsensus_tpu_torch")
+FORBIDDEN = {"jax", "jaxlib", "bitcoinconsensus_tpu"}
+
+
+def _sources():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, files in os.walk(PKG):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path, encoding="utf-8").read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, REPO))
+def test_no_jax_or_jax_package_imports(path):
+    bad = FORBIDDEN & set(_imported_roots(path))
+    assert not bad, f"{path} imports {sorted(bad)}"
+
+
+def test_runs_with_jax_unavailable():
+    code = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None  # any import of jax now raises
+        sys.path.insert(0, {REPO!r})
+        import torch
+        torch.set_num_threads(1)
+        from bitcoinconsensus_tpu_torch import TorchSecpVerifier, SigCheck
+        from bitcoinconsensus_tpu_torch.utils import blockgen as B
+        import hashlib
+        sk = 12345
+        msg = hashlib.sha256(b"no-jax").digest()
+        xpk, _ = B.xonly_pubkey_create(sk)
+        good = SigCheck("schnorr", (xpk, B.sign_schnorr(sk, msg), msg))
+        bad = SigCheck("schnorr", (xpk, B.sign_schnorr(sk, msg)[:-1] + b"\\0", msg))
+        out = TorchSecpVerifier(device="cpu").verify_checks([good, bad])
+        assert out.tolist() == [True, False], out
+        assert not any(m == "bitcoinconsensus_tpu" or m.startswith("bitcoinconsensus_tpu.")
+                       for m in sys.modules)
+        print("ok")
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr[-3000:]
+
+
+def test_verifier_defaults_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        TorchSecpVerifier()
+    assert TorchSecpVerifier(device="cpu").device.type == "cpu"
+
+
+def test_wrapper_checks_its_inputs():
+    B = 4
+    good = [torch.zeros(B, 4, 32, dtype=torch.uint8)] + \
+        [torch.zeros(B, dtype=torch.int32)] * 5 + [torch.zeros(B, dtype=torch.bool)]
+    assert VT._check(good[0], good[1:6], good[6]) == B
+    bad_cases = [
+        (good[0].to(torch.int32), good[1:6], good[6]),
+        (good[0][:, :3], good[1:6], good[6]),
+        (good[0], [good[1].to(torch.int64)] + good[2:6], good[6]),
+        (good[0], good[1:6], good[6].to(torch.int32)),
+        (good[0], [torch.zeros(2 * B, dtype=torch.int32)[::2]] + good[2:6], good[6]),
+    ]
+    for fields, flags, valid in bad_cases:
+        with pytest.raises(ValueError):
+            VT._check(fields, flags, valid)
