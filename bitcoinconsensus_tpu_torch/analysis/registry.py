@@ -1,0 +1,134 @@
+"""Registry of the port's kernels the prover must prove.
+
+The port's counterpart of `bitcoinconsensus_tpu/analysis/registry.py`. Every
+function of the port whose output feeds a consensus verdict is listed with
+the input bounds it may assume (the contracts `ops/limbs.py` documents: W2
+weak rows for field inputs, canonical rows for exact limbs) and the output
+bounds it promises, held against the prover's derived intervals: an
+`out_within` failure means the hand bookkeeping understates reality, which
+is a fault of the port, not of the prover. Hand-written kernels are listed
+by their launch contracts (`analysis/kernel_check.py`).
+
+Entries of the JAX registry the port has no code for yet (`fe_inv`, the
+complete adds, `double_scalar_mult_glv`, `mxu.fe_mul_onehot`, `sha256.*`,
+`jax_backend.*`) are not registered; ROADMAP.md lists them with their
+modules.
+
+To register a kernel:
+
+    KernelSpec("my.kernel", lambda: interval.analyze(fn, specs, "my.kernel",
+                                                     in_bounds, out_within),
+               heavy=False)
+
+and `python -m bitcoinconsensus_tpu_torch.analysis.lint` picks it up.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, List, Tuple
+
+import torch
+
+from ..ops import curve as C
+from ..ops import limbs as L
+from ..ops import verify_tiles as VT
+from . import interval, kernel_check
+
+DEFAULT_BATCH = 2  # two lanes: keeps the batch axis without cost
+# A full dispatch (128 blocks of 64 lanes), and a ragged width whose last
+# block holds 44 lanes.
+VERIFY_TILES_WIDTHS = (8192, 4908)
+
+
+def w2_rows() -> List[Tuple[int, int]]:
+    """Weak-representation contract: per-limb [0, W2[i]]."""
+    return [(0, int(b)) for b in L.W2]
+
+
+def canon_rows() -> List[Tuple[int, int]]:
+    """Canonical field element: every limb in [0, MASK]."""
+    return [(0, L.MASK)] * L.NLIMB
+
+
+@dataclass
+class KernelSpec:
+    name: str
+    analyze: Callable[[], interval.Report]
+    heavy: bool = False
+    note: str = ""
+
+
+def _fe(B: int) -> interval.TensorSpec:
+    return interval.TensorSpec((L.NLIMB, B), torch.int32)
+
+
+def _fn_spec(name, fn, n_args, out_within, note="") -> KernelSpec:
+    w2 = w2_rows()
+    return KernelSpec(name, lambda: interval.analyze(
+        fn, [_fe(DEFAULT_BATCH)] * n_args, name,
+        in_bounds={i: w2 for i in range(n_args)}, out_within=out_within),
+        note=note)
+
+
+def vt_specs(B: int) -> List[interval.TensorSpec]:
+    """Argument specs of `verify_tiles`'s launch at B lanes (the G table's
+    words last)."""
+    lanes = [interval.TensorSpec((B,), torch.int32)] * 5
+    return ([interval.TensorSpec((B, 4, 32), torch.uint8)] + lanes
+            + [interval.TensorSpec((B,), torch.bool),
+               interval.TensorSpec(VT.GTAB_SHAPE, torch.int32)])
+
+
+VT_FLAG_BOUNDS = {1: (0, 1), 2: (-1, 1), 3: (0, 1), 4: (0, 1), 5: (0, 1)}
+
+
+def _verify_tiles_contract() -> interval.Report:
+    rep = interval.Report(name="cuda.verify_tiles")
+    for B in VERIFY_TILES_WIDTHS:
+        kernel_check.check_contract(VT.VERIFY_TILES_CONTRACT, vt_specs(B),
+                                    f"cuda.verify_tiles[{B}]", prove_body=False,
+                                    report=rep)
+        rep.notes.append(f"contract checked at {B} lanes")
+    return rep
+
+
+def _verify_tiles_body() -> interval.Report:
+    B = VT.VERIFY_TILES_CONTRACT.threads
+    return kernel_check.check_contract(
+        VT.VERIFY_TILES_CONTRACT, vt_specs(B), "cuda.verify_tiles.body",
+        in_bounds=VT_FLAG_BOUNDS, out_within=[[(0, 1)] * 2])
+
+
+def _specs() -> List[KernelSpec]:
+    w2, canon = w2_rows(), canon_rows()
+    return [
+        _fn_spec("limbs.fe_add", L.fe_add, 2, [w2]),
+        _fn_spec("limbs.fe_sub", L.fe_sub, 2, [w2]),
+        _fn_spec("limbs.fe_mul", L.fe_mul, 2, [w2],
+                 note="schoolbook columns, each below 2^31"),
+        _fn_spec("limbs.fe_sqr", L.fe_sqr, 1, [w2]),
+        _fn_spec("limbs.fe_canon", L.fe_canon, 1, [canon]),
+        _fn_spec("limbs.fe_is_zero", L.fe_is_zero, 1, None),
+        _fn_spec("curve.jacobian_double", C.jacobian_double, 3, [w2] * 3),
+        KernelSpec("cuda.verify_tiles", _verify_tiles_contract,
+                   note="launch contract of csrc/verify_tiles.cu at "
+                        f"{' and '.join(map(str, VERIFY_TILES_WIDTHS))} lanes"),
+        KernelSpec("cuda.verify_tiles.body", _verify_tiles_body, heavy=True,
+                   note="interval proof of the plain version "
+                        "(verify_tiles_reference, 20x13-bit limbs) on one "
+                        "64-lane block; the CUDA kernel's 8x32-bit words are "
+                        "held to it bit for bit on the card, not proven"),
+    ]
+
+
+def all_kernels(include_heavy: bool = True) -> List[KernelSpec]:
+    specs = _specs()
+    return specs if include_heavy else [s for s in specs if not s.heavy]
+
+
+def get_kernel(name: str) -> KernelSpec:
+    for s in _specs():
+        if s.name == name:
+            return s
+    raise KeyError(name)

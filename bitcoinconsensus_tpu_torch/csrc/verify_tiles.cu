@@ -623,11 +623,13 @@ extern "C" int vt_verify_tiles(const void* fields, const void* want_odd,
                                const void* parity_req, const void* has_t2,
                                const void* neg1, const void* neg2,
                                const void* valid, const void* gtab, void* out,
-                               int n, void* stream) {
+                               int n, int grid, int threads, void* stream) {
+  // grid and threads come from the wrapper's launch contract
+  // (VERIFY_TILES_CONTRACT); a launch other than one 64-thread block per 64
+  // lanes is refused.
+  if (threads != 64 || grid != (n + 63) / 64) return (int)cudaErrorInvalidValue;
   if (n > 0) {
-    const int threads = 64;
-    int blocks = (n + threads - 1) / threads;
-    vt_verify_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+    vt_verify_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)fields, (const int32_t*)want_odd,
         (const int32_t*)parity_req, (const int32_t*)has_t2,
         (const int32_t*)neg1, (const int32_t*)neg2, (const uint8_t*)valid,

@@ -8,7 +8,8 @@ with a plain C interface, bound with ctypes:
 The library lands in `build/torch_kernels/` at the root of the checkout,
 named by a hash of its source and flags, so a changed source rebuilds and an
 unchanged one loads at once. The compiler's output (`-Xptxas -v`: registers,
-spills) is kept beside the library. Nothing here runs at import time.
+spills) is kept beside the library. Sources build independently: two
+threads may compile two of them at once. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -42,7 +43,8 @@ class Built:
     log: str  # nvcc/ptxas output of the build that made `path`
 
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards the three dicts
+_name_locks: Dict[str, threading.Lock] = {}
 _built: Dict[str, Built] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -62,6 +64,8 @@ def build(name: str) -> Built:
     """Compile `csrc/<name>.cu` unless a library of the same source hash is
     already in the build directory."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         if name in _built:
             return _built[name]
         src = CSRC / f"{name}.cu"
@@ -93,8 +97,10 @@ def build(name: str) -> Built:
                     os.unlink(tmp)
             seconds = time.perf_counter() - t0
         log = log_path.read_text() if log_path.exists() else ""
-        _built[name] = Built(out, seconds, log)
-        return _built[name]
+        built = Built(out, seconds, log)
+        with _lock:
+            _built[name] = built
+        return built
 
 
 def load(name: str) -> ctypes.CDLL:

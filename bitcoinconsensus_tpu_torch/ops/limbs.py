@@ -151,12 +151,16 @@ _FOLD_COLS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 def _fold_col(x: torch.Tensor) -> torch.Tensor:
     """_FOLD260 as a (3, 1, ..., 1) int32 tensor on x's device, made once
-    per device and rank (no host-to-device copy per carry pass)."""
+    per device and rank (no host-to-device copy per carry pass). A column
+    made while `x` is being traced (a fake or functional tensor, as the
+    prover's `make_fx` gives) is used and not kept."""
     key = (x.device, x.dim())
     col = _FOLD_COLS.get(key)
     if col is None:
         col = torch.tensor(_FOLD260, dtype=torch.int32, device=x.device)
-        col = _FOLD_COLS.setdefault(key, col.reshape((3,) + (1,) * (x.dim() - 1)))
+        col = col.reshape((3,) + (1,) * (x.dim() - 1))
+        if torch._guards.detect_fake_mode(x) is None:
+            col = _FOLD_COLS.setdefault(key, col)
     return col
 
 

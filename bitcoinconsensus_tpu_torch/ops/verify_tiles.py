@@ -34,6 +34,7 @@ import torch
 
 from ..crypto.secp_host import N as _N_INT
 from . import _build
+from .contract import LaunchContract, Window, cdiv
 from .curve import (
     G_WINDOW_BITS,
     G_WINDOWS,
@@ -69,7 +70,8 @@ from .limbs import (
     int_to_limbs,
 )
 
-__all__ = ["verify_tiles", "verify_tiles_reference", "SGLV_WINDOWS", "SGLV_WIDTH"]
+__all__ = ["verify_tiles", "verify_tiles_reference", "VERIFY_TILES_CONTRACT",
+           "SGLV_WINDOWS", "SGLV_WIDTH"]
 
 # Signed 5-bit windows over the 128-bit GLV halves: 26 windows of
 # (5 doublings + 2 mixed adds); digits in [-16, 15], table {1..16}·P.
@@ -235,6 +237,7 @@ def verify_tiles_reference(fields, want_odd, parity_req, has_t2, neg1, neg2,
 
 _gtab_lock = threading.Lock()
 _gtab: Dict[torch.device, torch.Tensor] = {}
+GTAB_SHAPE = (G_WINDOWS, 255, 2, 8)
 
 
 def gtable_words(device: torch.device) -> torch.Tensor:
@@ -249,7 +252,7 @@ def gtable_words(device: torch.device) -> torch.Tensor:
                 for window in affine_table() for x, y in window
             )
             words = np.frombuffer(raw, dtype="<u4").astype(np.uint32)
-            words = words.view(np.int32).reshape(G_WINDOWS, 255, 2, 8)
+            words = words.view(np.int32).reshape(GTAB_SHAPE)
             _gtab[device] = torch.from_numpy(words.copy()).to(device)
         return _gtab[device]
 
@@ -276,19 +279,62 @@ def _check(fields, flags, valid) -> int:
     return B
 
 
+def _contract_body(block, fields, want_odd, parity_req, has_t2, neg1, neg2,
+                   valid, gtab):
+    # The plain version reads its own limb-form G table, made from the same
+    # `affine_table` as the words the kernel reads.
+    ok, needs = verify_tiles_reference(fields, want_odd, parity_req, has_t2,
+                                       neg1, neg2, valid)
+    return torch.stack([ok, needs]).to(torch.int32)
+
+
+_VT_THREADS = 64  # csrc/verify_tiles.cu: __launch_bounds__(64), one lane each
+
+
+def _lanes(*rest: int) -> Window:
+    return Window((_VT_THREADS,) + rest,
+                  lambda b: (_VT_THREADS * b[0],) + (0,) * len(rest))
+
+
+# The launch of `vt_verify_tiles`: one thread per lane in 64-thread blocks,
+# the ragged last block masked in the kernel (`if (i >= n) return`), no
+# shared memory; every block reads the whole G table and writes its lanes'
+# columns of the (2, B) int32 result. `_launch` takes the grid, the threads
+# and the output's shape from here, and the C launcher refuses any other
+# launch. The body is the plain version: its interval proof
+# (`cuda.verify_tiles.body`) covers `verify_tiles_reference`'s 20x13-bit
+# arithmetic, not the kernel's 8x32-bit words, which are held to it bit for
+# bit on the card instead.
+VERIFY_TILES_CONTRACT = LaunchContract(
+    "verify_tiles",
+    grid=lambda fields, *_: (cdiv(fields[0], _VT_THREADS),),
+    threads=_VT_THREADS,
+    ins=(_lanes(4, 32),) + (_lanes(),) * 6
+    + (Window(GTAB_SHAPE, lambda b: (0, 0, 0, 0)),),
+    outs=(Window((2, _VT_THREADS), lambda b: (0, _VT_THREADS * b[0])),),
+    out_arrays=lambda fields, *_: (((2, fields[0]), torch.int32),),
+    body=_contract_body,
+    masked_edge=True,
+)
+
+
 def _launch(fields, want_odd, parity_req, has_t2, neg1, neg2, valid):
     B = _check(fields, (want_odd, parity_req, has_t2, neg1, neg2), valid)
     lib = _build.load("verify_tiles")
     fn = lib.vt_verify_tiles
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     gtab = gtable_words(fields.device)
-    out = torch.empty((2, B), dtype=torch.int32, device=fields.device)
+    c = VERIFY_TILES_CONTRACT
+    (grid,) = c.grid(tuple(fields.shape))
+    out = torch.empty(c.out_arrays(tuple(fields.shape))[0][0], dtype=torch.int32,
+                      device=fields.device)
     with torch.cuda.device(fields.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(fields.data_ptr(), want_odd.data_ptr(), parity_req.data_ptr(),
                  has_t2.data_ptr(), neg1.data_ptr(), neg2.data_ptr(),
-                 valid.data_ptr(), gtab.data_ptr(), out.data_ptr(), B, stream)
+                 valid.data_ptr(), gtab.data_ptr(), out.data_ptr(), B, grid,
+                 c.threads, stream)
     if err != 0:
         raise RuntimeError(f"verify_tiles kernel launch failed: CUDA error {err}")
     verify_tiles.launches += 1

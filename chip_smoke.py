@@ -6,8 +6,9 @@
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. The card: nvidia-smi name and power limit, torch and CUDA versions.
-2. Build every kernel of the main path from `bitcoinconsensus_tpu_torch/csrc`
-   with nvcc; print the build time and ptxas registers and spills.
+2. Build every kernel from `bitcoinconsensus_tpu_torch/csrc` with nvcc, one
+   process per source, all started together; print each build time and the
+   ptxas registers and spills.
 3. Main path: 10,000 seeded inputs in the replay mix (55% p2wpkh, 20% p2tr,
    15% p2pkh, 10% p2wsh 2-of-3; about 1% carry a corrupted signature) go
    through one `verify_batch` on cuda:0. Every clean input must be accepted,
@@ -17,7 +18,21 @@ Phases, each printing its own lines; any failure exits non-zero:
 4. Kernel against its plain version on the card: the first 8,192 lanes of
    that batch, a few hundred perturbed and one crafted collision lane; `ok`
    and `needs_host` must be bit-identical. Times by CUDA events.
-5. A `kernels` JSON line, the card line, and the result line.
+5. The kernel prover (`analysis/registry.py`), after the main path so that
+   its tracing leaves the main path's timing alone: every non-heavy entry
+   must prove, `verify_tiles`'s launch contract included (8,192 and 4,908
+   lanes); the positive toy must prove and each planted defect be rejected
+   with its kind.
+6. The toys, each through its wrapper on cuda:0 once (launch counts read
+   around this drive alone) on seeded inputs inside its declared bounds:
+   positive (8, 256), mul (20, 256) W2-bounded limbs, the three float32
+   toys and the float output fixture (8, 256), and the three planted
+   defects instrumented (8, 256). Each is held to its plain version on the
+   card at tolerance 0 (the defects: output, write counts and faults), and
+   timed by CUDA events per call (`ms`: what a caller waits, the wrapper's
+   host cost included) and by torch.profiler on the card alone
+   (`device_ms`).
+7. A `kernels` JSON line, the card line, and the result line.
 
 The script needs the repository beside it; with no CUDA device, or alone in
 a directory, it exits non-zero without a result. `--rehearse-cpu` runs the
@@ -41,12 +56,17 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # multiply-adds per SM per clock x 1.98 GHz boost clock.
 H100_INT32_OPS = 132 * 64 * 1.98e9
 H100_BYTES_PER_S = 3.35e12
+# Published peaks (NVIDIA's H100 SXM data sheet, dense).
+H100_F32_FLOPS = 67e12  # float32 outside the tensor cores
+H100_TF32_FLOPS = 495e12
 # int32 operations per 256-bit field multiply in csrc/verify_tiles.cu,
 # counted from the source: 64 32x32->64 multiply-accumulates at 3 int32
 # operations each (a wide multiply-add is two, the carry add one), plus
 # about 48 for the reduction mod p.
 INT_OPS_PER_FE_MUL = 64 * 3 + 48
 P = 2**256 - 2**32 - 977
+TOYS = "bitcoinconsensus_tpu/analysis/pallas_check.py"
+TOY_SOURCE = "bitcoinconsensus_tpu_torch/csrc/toy_kernels.cu"
 
 
 def _line(phase: str, **kv) -> None:
@@ -119,6 +139,113 @@ def _fe_muls_per_lane(fields, valid_in):
     return counts
 
 
+def _mul_toy_ops_per_column() -> int:
+    """int32 operations of `tk_fe_mul_col` in csrc/toy_kernels.cu, counted
+    from the source: 400 multiply-adds for the columns; a carry pass over n
+    limbs 3 per limb (shift, mask, add) plus 3 where its top carry wraps; a
+    fold 3 multiply-adds per high limb."""
+    from bitcoinconsensus_tpu_torch.ops import limbs as L
+
+    ops, n = L.NLIMB * L.NLIMB, 2 * L.NLIMB - 1
+    for step in L._settle_plan(tuple(L._MUL_BOUNDS)):
+        if step == "fold":
+            ops += 3 * (n - L.NLIMB)
+            n = max(L.NLIMB, n - L.NLIMB + 2)
+        else:
+            ops += 3 * n + (3 if step == "pass:wrap" else 0)
+            n += step == "pass:append"
+    return ops
+
+
+def _bound(nbytes: float, ops: float, rate: float = H100_INT32_OPS):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the rate of their type (int32 by default)."""
+    byte_ms = nbytes / H100_BYTES_PER_S * 1e3
+    op_ms = ops / rate * 1e3
+    return max(byte_ms, op_ms), ("operations" if op_ms >= byte_ms else "bytes")
+
+
+def _timed(fn, reps, device):
+    """Mean ms per call: CUDA events around `reps` calls after one warm-up
+    call on the card; the host clock on the CPU."""
+    import torch
+
+    if device.type == "cuda":
+        fn()
+        torch.cuda.synchronize(device)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        torch.cuda.synchronize(device)
+        return e0.elapsed_time(e1) / reps
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t) * 1e3 / reps
+
+
+def _device_ms(fn, reps, kernel: str):
+    """Mean device time per call of the CUDA kernels whose name holds
+    `kernel`, by torch.profiler over `reps` calls; None (not measured) where
+    the profiler fails or shows no device time for them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+    except Exception as e:  # an optional measurement: report, do not fail
+        print(f"  profiler unavailable: {type(e).__name__}: {e}", flush=True)
+        return None
+    us = sum(getattr(e, "self_device_time_total", 0.0) for e in events
+             if kernel in e.key)
+    return us / reps / 1e3 if us > 0 else None
+
+
+def _prover() -> None:
+    """Every non-heavy registry entry proves; the positive toy proves and
+    every planted defect is rejected with its kind."""
+    from bitcoinconsensus_tpu_torch.analysis import kernel_check as K
+    from bitcoinconsensus_tpu_torch.analysis import registry
+
+    bad = []
+    for spec in registry.all_kernels(include_heavy=False):
+        t0 = time.perf_counter()
+        rep = spec.analyze()
+        _line("prover", entry=spec.name, ok=rep.ok, nodes=rep.n_nodes,
+              grid=json.dumps(rep.grid), violations=len(rep.violations),
+              seconds=f"{time.perf_counter() - t0:.2f}")
+        if not rep.ok:
+            bad.append(f"{spec.name}: {rep.violations[:2]}")
+    t0 = time.perf_counter()
+    rep = K.analyze_positive_toy()
+    _line("prover", entry="toy.positive", ok=rep.ok, grid=json.dumps(rep.grid),
+          smem_bytes=rep.smem_peak_bytes, out_rows=len(rep.out_bounds[0]),
+          seconds=f"{time.perf_counter() - t0:.2f}")
+    if not rep.ok or rep.out_bounds[0] != [(1, 101)] * 8:
+        bad.append(f"toy.positive: {rep.violations[:2]} {rep.out_bounds[:1]}")
+    for name, kind in K.NEGATIVE_KINDS.items():
+        t0 = time.perf_counter()
+        rep = K.analyze_negative(name)
+        kinds = sorted({v.kind for v in rep.violations})
+        rejected = not rep.ok and kind in kinds
+        _line("prover", entry=f"negative.{name}", rejected=rejected,
+              want=kind, kinds=",".join(kinds),
+              seconds=f"{time.perf_counter() - t0:.2f}")
+        if not rejected:
+            bad.append(f"negative {name} not rejected with {kind}: {kinds}")
+    if bad:
+        _fail("kernel prover: " + "; ".join(bad))
+
+
 def _signed_mags(v: int):
     out, carry = [], 0
     for w in range(26):
@@ -147,6 +274,7 @@ def main() -> int:
     from bitcoinconsensus_tpu_torch.models.batch import verify_batch
     from bitcoinconsensus_tpu_torch.models.sigcache import ScriptExecutionCache, SigCache
     from bitcoinconsensus_tpu_torch.ops import _build
+    from bitcoinconsensus_tpu_torch.ops import limbs as L
     from bitcoinconsensus_tpu_torch.ops import verify_tiles as VT
     from bitcoinconsensus_tpu_torch.utils import blockgen
 
@@ -164,14 +292,19 @@ def main() -> int:
           cuda=torch.version.cuda, device=json.dumps(kind),
           count=0 if rehearse else torch.cuda.device_count())
 
-    # -- 2. build ------------------------------------------------------------
+    # -- 2. build, and the kernel prover -------------------------------------
     if not rehearse:
-        built = _build.build("verify_tiles")
-        _line("build", kernel="verify_tiles", seconds=f"{built.seconds:.2f}",
-              library=os.path.relpath(built.path, HERE))
-        for ln in built.log.splitlines():
-            if re.search(r"registers|spill|stack frame", ln):
-                print("  ptxas: " + ln.strip(), flush=True)
+        from concurrent.futures import ThreadPoolExecutor
+
+        sources = ("verify_tiles", "toy_kernels")
+        with ThreadPoolExecutor(len(sources)) as pool:
+            builds = list(pool.map(_build.build, sources))
+        for name, built in zip(sources, builds):
+            _line("build", kernel=name, seconds=f"{built.seconds:.2f}",
+                  library=os.path.relpath(built.path, HERE))
+            for ln in built.log.splitlines():
+                if re.search(r"registers|spill|stack frame", ln):
+                    print("  ptxas: " + ln.strip(), flush=True)
 
     def sync():
         if device.type == "cuda":
@@ -287,25 +420,8 @@ def main() -> int:
     if err != 0 or not bool(nd_k[0]) or bool(ok_k[0]):
         _fail("kernel and plain version disagree (tolerance: bit-identical)")
 
-    def timed(fn, reps):
-        if device.type == "cuda":
-            fn()
-            sync()
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            for _ in range(reps):
-                fn()
-            e1.record()
-            sync()
-            return e0.elapsed_time(e1) / reps
-        t = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        return (time.perf_counter() - t) * 1e3 / reps
-
-    kernel_ms = timed(lambda: VT.verify_tiles(*dev), 1 if rehearse else 20)
-    plain_ms = timed(lambda: VT.verify_tiles_reference(*dev), 1)
+    kernel_ms = _timed(lambda: VT.verify_tiles(*dev), 1 if rehearse else 20, device)
+    plain_ms = _timed(lambda: VT.verify_tiles_reference(*dev), 1, device)
     muls = _fe_muls_per_lane(f, val)
     int_ops = float(muls.sum()) * INT_OPS_PER_FE_MUL
     nbytes = n_lanes * (128 + 5 * 4 + 1 + 2 * 4) + 32 * 255 * 2 * 32
@@ -331,6 +447,106 @@ def main() -> int:
         "bound_by": "operations" if op_ms >= byte_ms else "bytes",
         "library_ms": None,
     }]
+
+    # -- 5. the kernel prover ----------------------------------------------------
+    # The prover's modules are imported only now, so that the main path runs
+    # in a process that has not loaded them.
+    from bitcoinconsensus_tpu_torch.analysis import kernel_check as K
+    from bitcoinconsensus_tpu_torch.ops.contract import run_contract
+
+    _prover()
+
+    # -- 6. the toys ------------------------------------------------------------
+    if not rehearse:
+        toy_lib = _build.load("toy_kernels")
+        for wrapper in K.TOY_WRAPPERS:
+            getattr(toy_lib, "tk" + wrapper.__name__[3:])  # raises if missing
+        _line("toys", launchers=len(K.TOY_WRAPPERS), present=True)
+    cols = K.TOY_TILE * 2
+    rows8 = (K.TOY_ROWS, cols)
+
+    def ints(lo, hi, shape=rows8):
+        return torch.from_numpy(rng.integers(lo, hi + 1, shape).astype(np.int32)).to(device)
+
+    w2 = np.asarray(L.W2, dtype=np.int64)[:, None]
+    xm = rng.integers(0, w2 + 1, (L.NLIMB, cols)).astype(np.int32)
+    xm[:, 0] = L.W2  # the W2 corner
+    elems8 = float(K.TOY_ROWS * cols)
+    dot_flops = 2.0 * K.TOY_ROWS * cols  # column 0 of X X^T, per 128 columns
+    checked_bytes = elems8 * 12 + cols // K.TOY_TILE * 8  # x, o, writes; faults
+    # (name, wrapper, contract, input, pallas_check.py line, kernel symbol,
+    #  bytes, operations, rate, library call or None)
+    x8 = ints(-1000, 1000)
+    toys = [
+        ("positive", K.toy_positive, K.POSITIVE_CONTRACT, x8, 780,
+         "tk_positive_kernel", elems8 * 8, elems8, H100_INT32_OPS, lambda: x8 + 1),
+        ("mul", K.toy_mul, K.MUL_CONTRACT, torch.from_numpy(xm).to(device), 841,
+         "tk_mul_kernel", xm.size * 8.0, float(cols * _mul_toy_ops_per_column()),
+         H100_INT32_OPS, None),
+        ("f32_dot_tf32", K.toy_f32_dot_tf32, K.F32_DOT_TF32_CONTRACT, ints(0, 100),
+         884, "tk_f32_dot_tf32_kernel", elems8 * 8, dot_flops, H100_TF32_FLOPS, None),
+        ("f32_dot", K.toy_f32_dot, K.F32_DOT_CONTRACT, ints(0, 1 << 9), 910,
+         "tk_f32_dot_kernel", elems8 * 8, dot_flops, H100_F32_FLOPS, None),
+        ("f32_square", K.toy_f32_square, K.F32_SQUARE_CONTRACT, ints(0, 100), 933,
+         "tk_f32_square_kernel", elems8 * 8, elems8, H100_F32_FLOPS, None),
+        ("f32_write", K.toy_f32_write, K.F32_WRITE_CONTRACT, ints(0, 100), None,
+         "tk_f32_write_kernel", elems8 * 8, elems8, H100_F32_FLOPS, None),
+        ("oob_index_map", K.toy_oob_index_map, K.OOB_CONTRACT, x8, 798,
+         "tk_window_copy_kernel", checked_bytes, 0.0, H100_INT32_OPS, None),
+        ("read_before_write", K.toy_read_before_write, K.RBW_CONTRACT, x8, 819,
+         "tk_read_before_write_kernel", checked_bytes, 0.0, H100_INT32_OPS, None),
+        ("double_write", K.toy_double_write, K.DOUBLE_WRITE_CONTRACT, x8, 860,
+         "tk_window_copy_kernel", checked_bytes, 0.0, H100_INT32_OPS, None),
+    ]
+    for t in toys:
+        t[1].launches = 0
+    sync()
+    outs = [t[1](t[3]) for t in toys]  # the toys' drive
+    sync()
+    toy_launches = {t[0]: t[1].launches for t in toys}
+    if not rehearse and 0 in toy_launches.values():
+        _fail(f"a toy wrapper never launched its kernel: {toy_launches}")
+    for (name, wrapper, contract, x, line, symbol, nbytes_t, ops_t, rate,
+         library), out in zip(toys, outs):
+        checked = isinstance(out, tuple)
+        plain_fn = (lambda c=contract, x=x: K.run_checked(c, x)) if checked else \
+            (lambda c=contract, x=x: run_contract(c, x))
+        plain = plain_fn()
+        sync()
+        if checked:
+            o, writes, faults = out
+            po, pwrites, pfaults = plain
+            once = pwrites == 1  # elements two blocks race on have no defined value
+            err = max(int((writes - pwrites).abs().max()),
+                      int((faults - pfaults).abs().max()),
+                      int((o[once].long() - po[once].long()).abs().sum()))
+            extra = dict(faults=json.dumps(faults.tolist()),
+                         writes_max=int(writes.max()),
+                         unwritten=int((writes == 0).sum()))
+        else:
+            err = float((out.double() - plain.double()).abs().max())
+            err = int(err) if err.is_integer() else err
+            extra = {}
+        ms = _timed(lambda: wrapper(x), 1 if rehearse else 200, device)
+        p_ms = _timed(plain_fn, 1 if rehearse else 20, device)
+        lib_ms = _timed(library, 200, device) if library else None
+        dev_ms = None if rehearse else _device_ms(lambda: wrapper(x), 50, symbol)
+        b_ms, b_by = _bound(nbytes_t, ops_t, rate)
+        _line("toys", kernel=f"toy_{name}", shape=json.dumps(list(x.shape)),
+              launches=toy_launches[name], max_abs_err=err, tolerance=0,
+              ms=f"{ms:.5f}", device_ms=json.dumps(dev_ms),
+              plain_ms=f"{p_ms:.4f}",
+              library_ms="null" if lib_ms is None else f"{lib_ms:.5f}",
+              bound_ms=f"{b_ms:.3g}", bound_by=b_by, **extra)
+        if err != 0:
+            _fail(f"toy_{name} and its plain version disagree (tolerance 0)")
+        kernels.append({
+            "name": f"toy_{name}", "route": "cuda", "source": TOY_SOURCE,
+            "replaces": (f"{TOYS}:{line}" if line else
+                         "tests/test_pallas_check.py:112"),
+            "launches": toy_launches[name], "max_abs_err": err, "ms": ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms, "device_ms": dev_ms})
     _line("total", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

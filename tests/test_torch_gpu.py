@@ -1,5 +1,5 @@
-"""The port on a CUDA card: the hand-written kernel against its plain
-version, and the verifier and `verify_batch` on the device.
+"""The port on a CUDA card: the hand-written kernels against their plain
+versions, and the verifier and `verify_batch` on the device.
 
 Every test here carries the `gpu` marker and skips without a card. The file
 imports nothing of JAX, so it runs where only the port is installed:
@@ -16,11 +16,14 @@ import pytest
 import torch
 
 from bitcoinconsensus_tpu_torch import api
+from bitcoinconsensus_tpu_torch.analysis import kernel_check as K
 from bitcoinconsensus_tpu_torch.crypto import secp_host as H
 from bitcoinconsensus_tpu_torch.crypto.torch_backend import SigCheck, TorchSecpVerifier
 from bitcoinconsensus_tpu_torch.models.batch import verify_batch
 from bitcoinconsensus_tpu_torch.models.sigcache import ScriptExecutionCache, SigCache
+from bitcoinconsensus_tpu_torch.ops import limbs as L
 from bitcoinconsensus_tpu_torch.ops import verify_tiles as VT
+from bitcoinconsensus_tpu_torch.ops.contract import run_contract
 from bitcoinconsensus_tpu_torch.utils import blockgen as B
 
 
@@ -120,3 +123,70 @@ def test_verify_batch_on_cuda_matches_api():
         assert (r.ok, r.error) == want[:2] and r.ok == (not b)
         if not r.ok:
             assert r.script_error == want[2]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", [1, 255, 256, 257])
+def test_toy_positive_kernel_matches_plain_version(width):
+    _need_cuda()
+    rng = np.random.default_rng(width)
+    x = torch.from_numpy(rng.integers(-(1 << 30), 1 << 30, (K.TOY_ROWS, width))
+                         .astype(np.int32)).cuda()
+    before = K.toy_positive.launches
+    got = K.toy_positive(x)
+    torch.cuda.synchronize()
+    assert K.toy_positive.launches == before + 1
+    assert torch.equal(got, run_contract(K.POSITIVE_CONTRACT, x))
+    assert torch.equal(got, x + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", [1, 255, 257])
+def test_toy_mul_kernel_matches_plain_version(width):
+    _need_cuda()
+    rng = np.random.default_rng(width)
+    w2 = np.asarray(L.W2, dtype=np.int64)[:, None]
+    x = rng.integers(0, w2 + 1, (L.NLIMB, width)).astype(np.int32)
+    x[:, 0] = L.W2
+    x = torch.from_numpy(x).cuda()
+    before = K.toy_mul.launches
+    got = K.toy_mul(x)
+    torch.cuda.synchronize()
+    assert K.toy_mul.launches == before + 1
+    assert torch.equal(got, run_contract(K.MUL_CONTRACT, x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("toy,hi", [("f32_dot_tf32", 100), ("f32_dot", 1 << 9),
+                                    ("f32_square", 100), ("f32_write", 100)])
+@pytest.mark.parametrize("width", [128, 256, 1024])
+def test_f32_toy_kernels_match_plain_versions(toy, hi, width):
+    _need_cuda()
+    rng = np.random.default_rng(width + hi)
+    x = torch.from_numpy(rng.integers(0, hi + 1, (K.TOY_ROWS, width))
+                         .astype(np.int32)).cuda()
+    wrapper = getattr(K, f"toy_{toy}")
+    before = wrapper.launches
+    got = wrapper(x)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert torch.equal(got, wrapper(x.cpu()).cuda())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("toy", ["oob_index_map", "read_before_write", "double_write"])
+@pytest.mark.parametrize("width", [256, 384])
+def test_checked_defect_kernels_show_the_plain_versions_faults(toy, width):
+    _need_cuda()
+    rng = np.random.default_rng(width)
+    x = torch.from_numpy(rng.integers(-1000, 1000, (K.TOY_ROWS, width))
+                         .astype(np.int32)).cuda()
+    wrapper = getattr(K, f"toy_{toy}")
+    before = wrapper.launches
+    o, writes, faults = wrapper(x)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    po, pwrites, pfaults = wrapper(x.cpu())
+    assert torch.equal(faults.cpu(), pfaults) and torch.equal(writes.cpu(), pwrites)
+    once = pwrites == 1  # elements two blocks race on have no defined value
+    assert torch.equal(o.cpu()[once], po[once])
