@@ -12,9 +12,9 @@ shapes:
      `masked_edge` is declared (a `grid` violation names the block);
    - every output element is written by exactly one block, and none is left
      unwritten (`grid`);
-   - the shared memory a block declares stays at or under
-     `SMEM_LIMIT_BYTES`, the per-block limit of an H100 (`smem`), and the
-     threads per block at or under 1,024.
+   - the shared memory a block declares (its scratch and its dynamic
+     shared memory) stays at or under `SMEM_LIMIT_BYTES`, the per-block
+     limit of an H100 (`smem`), and the threads per block at or under 1,024.
 2. The body, by interval proof (`analysis/interval.py`) of its aten graph on
    one block's windows, with the inputs' bounds cut to the window. A body is
    proven once per distinct window shape: the full blocks, and the ragged
@@ -54,13 +54,12 @@ that keeps the certificate: TF32 keeps 10 mantissa bits.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..ops import _build
+from ..ops import launch
 from ..ops import limbs as L
 from ..ops.contract import LaunchContract, Window, cdiv, run_contract, window_span
 from . import interval as IV
@@ -420,54 +419,44 @@ def _check_input(contract: LaunchContract, x: torch.Tensor, rows: int) -> None:
         raise ValueError(f"{contract.name} runs on CUDA or the CPU, not {x.device}")
 
 
-def _toy(wrapper, kernel: str, contract: LaunchContract, x: torch.Tensor,
-         rows: int = TOY_ROWS):
-    _check_input(contract, x, rows)
-    if x.is_cuda:
-        return _launch(wrapper, kernel, contract, x)
-    return run_contract(contract, x)
+# The lean launch path (`ops/launch.py`): a plan per (kernel, shape, dtype,
+# device) is resolved once, with the input's checks, from the contract; a
+# call then checks contiguity, allocates the output and launches the
+# launcher `tk_<kernel>` with its arguments packed.
+_plans: Dict[tuple, launch.Plan] = {}
 
 
-_launchers: Dict[str, object] = {}
-_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_void_p]
-_CHECKED_ARGS = ([ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7
-                 + [ctypes.c_void_p] * 3)
-
-
-def _launcher(kernel: str, argtypes):
-    """The C launcher `tk_<kernel>`, bound once (the library is built at
-    first use)."""
-    fn = _launchers.get(kernel)
-    if fn is None:
-        fn = getattr(_build.load("toy_kernels"), f"tk_{kernel}")
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _launchers[kernel] = fn
-    return fn
-
-
-def _call(wrapper, kernel: str, contract: LaunchContract, x: torch.Tensor,
-          argtypes, *args) -> None:
+def _plan(kernel: str, contract: LaunchContract, x: torch.Tensor,
+          rows: int) -> launch.Plan:
+    key = (kernel, x.shape, x.dtype, x.device)
+    plan = _plans.get(key)
+    if plan is None:
+        _check_input(contract, x, rows)
+        shape = tuple(x.shape)
+        (grid,) = contract.grid(shape)
+        ((out_shape, out_dtype),) = contract.out_arrays(shape)
+        plan = launch.Plan(launch.bind("toy_kernels", f"tk_{kernel}"),
+                           grid, contract.threads, tuple(out_shape), out_dtype,
+                           like_input=(tuple(out_shape) == shape
+                                       and out_dtype == x.dtype))
+        _plans[key] = plan
     if not x.is_contiguous():
         raise ValueError(f"{contract.name}: the input must be contiguous")
-    fn = _launcher(kernel, argtypes)
-    (grid,) = contract.grid(tuple(x.shape))
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), args[0].data_ptr(), x.shape[1], grid,
-                 contract.threads, *args[1:], stream)
-    if err != 0:
-        raise RuntimeError(f"{contract.name} kernel launch failed: CUDA error {err}")
-    wrapper.launches += 1
+    return plan
 
 
-def _launch(wrapper, kernel: str, contract: LaunchContract,
-            x: torch.Tensor) -> torch.Tensor:
-    ((shape, dtype),) = contract.out_arrays(tuple(x.shape))
-    out = torch.empty(shape, dtype=dtype, device=x.device)
-    _call(wrapper, kernel, contract, x, _ARGS, out)
-    return out
+def _toy(wrapper, kernel: str, contract: LaunchContract, x: torch.Tensor,
+         rows: int = TOY_ROWS):
+    if x.is_cuda:
+        p = _plan(kernel, contract, x, rows)
+        out = (torch.empty_like(x) if p.like_input
+               else x.new_empty(p.out_shape, dtype=p.out_dtype))
+        launch.call(p.fn, x.get_device(), x.data_ptr(), out.data_ptr(),
+                    x.shape[1], p.grid, p.threads)
+        wrapper.launches += 1
+        return out
+    _check_input(contract, x, rows)
+    return run_contract(contract, x)
 
 
 def toy_positive(x: torch.Tensor) -> torch.Tensor:
@@ -560,17 +549,18 @@ def run_checked(contract: LaunchContract, x: torch.Tensor):
 
 
 def _checked(wrapper, kernel: str, contract: LaunchContract, x: torch.Tensor):
-    _check_input(contract, x, TOY_ROWS)
     if not x.is_cuda:
+        _check_input(contract, x, TOY_ROWS)
         return run_checked(contract, x)
-    (grid,) = contract.grid(tuple(x.shape))
-    in_step, in_first = _affine_cols(contract.ins[0], grid)
-    out_step, out_first = _affine_cols(contract.outs[0], grid)
+    p = _plan(kernel, contract, x, TOY_ROWS)
+    cols = (_affine_cols(contract.ins[0], p.grid)
+            + _affine_cols(contract.outs[0], p.grid))
     o = torch.zeros_like(x)
     writes = torch.zeros_like(x)
-    faults = torch.zeros((grid, 2), dtype=torch.int32, device=x.device)
-    _call(wrapper, kernel, contract, x, _CHECKED_ARGS, o, in_step, in_first,
-          out_step, out_first, writes.data_ptr(), faults.data_ptr())
+    faults = torch.zeros((p.grid, 2), dtype=torch.int32, device=x.device)
+    launch.call(p.fn, x.get_device(), x.data_ptr(), o.data_ptr(), x.shape[1],
+                p.grid, p.threads, *cols, writes.data_ptr(), faults.data_ptr())
+    wrapper.launches += 1
     return o, writes, faults
 
 

@@ -244,15 +244,18 @@ __global__ void __launch_bounds__(TK_ROWS* TK_TILE)
   o[i] = tk_f32_write_elem(x[i]);
 }
 
-// Launchers: (x, o, cols, grid, threads, stream) -> cudaError_t. A launch
+// Launchers take their arguments packed as one array of 64-bit words, in
+// this order: (x, o, cols, grid, threads, stream) -> cudaError_t; ctypes then
+// converts one pointer instead of each argument (`ops/launch.py`). A launch
 // whose threads differ from what the kernel indexes by is refused.
+#define TK_PTR(a, i) ((void*)(intptr_t)(a)[i])
 #define TK_LAUNCHER(name, want_threads, out_t)                              \
-  extern "C" int tk_##name(const void* x, void* o, int cols, int grid,     \
-                           int threads, void* stream) {                    \
+  extern "C" int tk_##name(const int64_t* a) {                              \
+    int cols = (int)a[2], grid = (int)a[3], threads = (int)a[4];            \
     if (threads != (want_threads)) return (int)cudaErrorInvalidValue;      \
     if (grid > 0)                                                           \
-      tk_##name##_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(       \
-          (const int32_t*)x, (out_t*)o, cols);                              \
+      tk_##name##_kernel<<<grid, threads, 0, (cudaStream_t)TK_PTR(a, 5)>>>( \
+          (const int32_t*)TK_PTR(a, 0), (out_t*)TK_PTR(a, 1), cols);        \
     return (int)cudaGetLastError();                                         \
   }
 
@@ -312,19 +315,17 @@ __global__ void __launch_bounds__(TK_ROWS* TK_TILE)
   tk_checked_copy(x, o, cols, w, writes, faults, true);
 }
 
-// Launchers of the checked kernels: (x, o, cols, grid, threads, in_step,
-// in_first, out_step, out_first, writes, faults, stream) -> cudaError_t.
+// Launchers of the checked kernels, packed as above: (x, o, cols, grid,
+// threads, in_step, in_first, out_step, out_first, writes, faults, stream).
 #define TK_CHECKED_LAUNCHER(name, kernel)                                     \
-  extern "C" int tk_##name(const void* x, void* o, int cols, int grid,       \
-                           int threads, int in_step, int in_first,           \
-                           int out_step, int out_first, void* writes,        \
-                           void* faults, void* stream) {                     \
+  extern "C" int tk_##name(const int64_t* a) {                                \
+    int cols = (int)a[2], grid = (int)a[3], threads = (int)a[4];              \
     if (threads != TK_ROWS * TK_TILE) return (int)cudaErrorInvalidValue;     \
-    TkWindows w = {in_step, in_first, out_step, out_first};                  \
+    TkWindows w = {(int)a[5], (int)a[6], (int)a[7], (int)a[8]};               \
     if (grid > 0)                                                             \
-      kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(                     \
-          (const int32_t*)x, (int32_t*)o, cols, w, (int32_t*)writes,          \
-          (int32_t*)faults);                                                  \
+      kernel<<<grid, threads, 0, (cudaStream_t)TK_PTR(a, 11)>>>(              \
+          (const int32_t*)TK_PTR(a, 0), (int32_t*)TK_PTR(a, 1), cols, w,     \
+          (int32_t*)TK_PTR(a, 9), (int32_t*)TK_PTR(a, 10));                   \
     return (int)cudaGetLastError();                                           \
   }
 

@@ -10,7 +10,12 @@ the port declares its launch beside its wrapper as a `LaunchContract`:
 - for each input and output, a window shape and an index map from the block
   index to the window's element offsets;
 - `masked_edge`: whether the kernel masks a ragged last block itself;
-- the shared-memory scratch, as shapes and dtypes;
+- the shared-memory scratch, as shapes and dtypes, handed to the body;
+- `dynamic_smem`: shared memory the kernel carves for itself at launch
+  (dynamic shared memory, the launch's third argument), as shapes and
+  dtypes. The body does not see it: it is the kernel's own working set,
+  and the plain version keeps the same values in tensors of its own. The
+  wrapper passes its bytes to the launcher, which refuses any other size;
 - `body(block, *in_windows, *scratch) -> out_windows`, one block's work in
   plain torch.
 
@@ -60,12 +65,21 @@ class LaunchContract:
     body: Callable
     masked_edge: bool = False
     scratch: Tuple[Tuple[Shape, torch.dtype], ...] = ()
+    dynamic_smem: Tuple[Tuple[Shape, torch.dtype], ...] = ()
+
+    def dynamic_smem_bytes(self) -> int:
+        """Dynamic shared memory one block takes at launch."""
+        return _nbytes(self.dynamic_smem)
 
     def smem_bytes(self) -> int:
-        """Shared memory one block declares: its scratch."""
-        return sum(
-            int(np.prod(shape)) * torch.empty((), dtype=dt).element_size()
-            for shape, dt in self.scratch)
+        """Shared memory one block declares: its scratch and its dynamic
+        shared memory."""
+        return _nbytes(self.scratch) + self.dynamic_smem_bytes()
+
+
+def _nbytes(arrays) -> int:
+    return sum(int(np.prod(shape)) * torch.empty((), dtype=dt).element_size()
+               for shape, dt in arrays)
 
 
 def window_span(win: Window, block: Tuple[int, ...]) -> List[Tuple[int, int]]:

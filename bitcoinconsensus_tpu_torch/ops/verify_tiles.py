@@ -25,7 +25,6 @@ fast adds do not compute, which the caller must resolve on the host.
 
 from __future__ import annotations
 
-import ctypes
 import threading
 from typing import Dict, Tuple
 
@@ -33,7 +32,7 @@ import numpy as np
 import torch
 
 from ..crypto.secp_host import N as _N_INT
-from . import _build
+from . import launch
 from .contract import LaunchContract, Window, cdiv
 from .curve import (
     G_WINDOW_BITS,
@@ -288,7 +287,13 @@ def _contract_body(block, fields, want_odd, parity_req, has_t2, neg1, neg2,
     return torch.stack([ok, needs]).to(torch.int32)
 
 
-_VT_THREADS = 64  # csrc/verify_tiles.cu: __launch_bounds__(64), one lane each
+_VT_THREADS = 64  # csrc/verify_tiles.cu: __launch_bounds__(64, 1), one lane each
+# The kernel's per-lane shared slots (csrc/verify_tiles.cu `vt_slots`),
+# [slot][word][lane]: the {1..16}·P table as (entry, x|y, word, lane), and
+# the rescale ratios 1..15. The addition chains reuse the table's first
+# slots while it is not live.
+_VT_SMEM = (((16, 2, 8, _VT_THREADS), torch.int32),
+            ((15, 8, _VT_THREADS), torch.int32))
 
 
 def _lanes(*rest: int) -> Window:
@@ -297,14 +302,16 @@ def _lanes(*rest: int) -> Window:
 
 
 # The launch of `vt_verify_tiles`: one thread per lane in 64-thread blocks,
-# the ragged last block masked in the kernel (`if (i >= n) return`), no
-# shared memory; every block reads the whole G table and writes its lanes'
-# columns of the (2, B) int32 result. `_launch` takes the grid, the threads
-# and the output's shape from here, and the C launcher refuses any other
-# launch. The body is the plain version: its interval proof
-# (`cuda.verify_tiles.body`) covers `verify_tiles_reference`'s 20x13-bit
-# arithmetic, not the kernel's 8x32-bit words, which are held to it bit for
-# bit on the card instead.
+# the ragged last block masked in the kernel (`if (i >= n) return`), and
+# 96,256 bytes of dynamic shared memory a block for the lanes' own slots
+# (no lane reads another's, so no barrier); every block reads the whole G
+# table and writes its lanes' columns of the (2, B) int32 result. `_launch`
+# takes the grid, the threads, the shared bytes and the output's shape from
+# here, and the C launcher refuses any other launch. The body is the plain
+# version: its interval proof (`cuda.verify_tiles.body`) covers
+# `verify_tiles_reference`'s 20x13-bit arithmetic, not the kernel's 8x32-bit
+# words, which are held to it bit for bit on the card instead (and on the
+# host, through the lane program's portable build).
 VERIFY_TILES_CONTRACT = LaunchContract(
     "verify_tiles",
     grid=lambda fields, *_: (cdiv(fields[0], _VT_THREADS),),
@@ -315,30 +322,97 @@ VERIFY_TILES_CONTRACT = LaunchContract(
     out_arrays=lambda fields, *_: (((2, fields[0]), torch.int32),),
     body=_contract_body,
     masked_edge=True,
+    dynamic_smem=_VT_SMEM,
 )
-
 
 def _launch(fields, want_odd, parity_req, has_t2, neg1, neg2, valid):
     B = _check(fields, (want_odd, parity_req, has_t2, neg1, neg2), valid)
-    lib = _build.load("verify_tiles")
-    fn = lib.vt_verify_tiles
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = launch.bind("verify_tiles", "vt_verify_tiles")
     gtab = gtable_words(fields.device)
     c = VERIFY_TILES_CONTRACT
     (grid,) = c.grid(tuple(fields.shape))
-    out = torch.empty(c.out_arrays(tuple(fields.shape))[0][0], dtype=torch.int32,
-                      device=fields.device)
-    with torch.cuda.device(fields.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(fields.data_ptr(), want_odd.data_ptr(), parity_req.data_ptr(),
-                 has_t2.data_ptr(), neg1.data_ptr(), neg2.data_ptr(),
-                 valid.data_ptr(), gtab.data_ptr(), out.data_ptr(), B, grid,
-                 c.threads, stream)
-    if err != 0:
-        raise RuntimeError(f"verify_tiles kernel launch failed: CUDA error {err}")
+    ((shape, dtype),) = c.out_arrays(tuple(fields.shape))
+    out = torch.empty(shape, dtype=dtype, device=fields.device)
+    launch.call(fn, fields.get_device(), fields.data_ptr(), want_odd.data_ptr(),
+                parity_req.data_ptr(), has_t2.data_ptr(), neg1.data_ptr(),
+                neg2.data_ptr(), valid.data_ptr(), gtab.data_ptr(),
+                out.data_ptr(), B, grid, c.threads, c.dynamic_smem_bytes())
     verify_tiles.launches += 1
     return out[0] != 0, out[1] != 0
+
+
+FIELD_OPS = ("mul", "sqr", "add", "sub", "mul_int", "canon", "is_zero")
+_P_INT = 2**256 - 0x1000003D1
+_K_INT = 0x1000003D1
+_M256 = (1 << 256) - 1
+
+
+def _fold(v: int) -> int:
+    """csrc/verify_tiles.cu `fe_fold`: v < 2^256·(2^32 + 979) to [0, 2^256),
+    the top folded by K twice."""
+    v = (v & _M256) + (v >> 256) * _K_INT
+    return (v & _M256) + (v >> 256) * _K_INT
+
+
+def field_model(op: str, a: int, b: int = 0, k: int = 0) -> int:
+    """The kernel's lazy field operation on integers in [0, 2^256): the exact
+    words it returns, not only their value mod p."""
+    if op in ("mul", "sqr"):
+        t = a * (a if op == "sqr" else b)
+        return _fold((t & _M256) + (t >> 256) * _K_INT)
+    if op == "add":
+        return _fold(a + b)
+    if op == "mul_int":
+        return _fold(a * k)
+    if op == "sub":
+        v = a - b
+        for _ in range(2):  # a borrow takes K off the wrapped value, at most twice
+            if v >= 0:
+                break
+            v = (v + (1 << 256)) - _K_INT
+        return v & _M256
+    if op == "canon":
+        return a - _P_INT if a >= _P_INT else a
+    if op == "is_zero":
+        return int(a % _P_INT == 0)
+    raise ValueError(f"unknown field op {op!r}")
+
+
+def words_to_ints(w: np.ndarray):
+    """(n, 8) little-endian 32-bit words (any int dtype) -> n Python ints."""
+    w = np.asarray(w).astype(np.int64) & 0xFFFFFFFF
+    return [sum(int(x) << (32 * j) for j, x in enumerate(row)) for row in w]
+
+
+def ints_to_words(vals) -> np.ndarray:
+    """n ints in [0, 2^256) -> (n, 8) int32 words."""
+    raw = b"".join(int(v).to_bytes(32, "little") for v in vals)
+    return np.frombuffer(raw, dtype="<u4").astype(np.uint32).view(np.int32).reshape(-1, 8)
+
+
+def field_op(op: str, a: torch.Tensor, b: torch.Tensor, k: int = 0) -> torch.Tensor:
+    """The kernel's field layer alone, one operation per row: (n, 8) int32
+    words a, b -> (n, 8) words. CUDA tensors run `vt_field_op` (the functions
+    the verify kernel inlines); CPU tensors run `field_model`."""
+    for t in (a, b):
+        if t.dtype != torch.int32 or t.dim() != 2 or t.shape[1] != 8 \
+                or not t.is_contiguous() or t.device != a.device:
+            raise ValueError("field_op takes contiguous (n, 8) int32 words on one device")
+    if b.shape != a.shape:
+        raise ValueError("a and b must have one shape")
+    if op not in FIELD_OPS:
+        raise ValueError(f"unknown field op {op!r}")
+    if not a.is_cuda:
+        if a.device.type != "cpu":
+            raise ValueError(f"field_op runs on CUDA or the CPU, not {a.device}")
+        vals = [field_model(op, x, y, k) for x, y in
+                zip(words_to_ints(a.numpy()), words_to_ints(b.numpy()))]
+        return torch.from_numpy(ints_to_words(vals).copy())
+    fn = launch.bind("verify_tiles", "vt_field_op")
+    out = torch.empty_like(a)
+    launch.call(fn, a.get_device(), FIELD_OPS.index(op), a.data_ptr(),
+                b.data_ptr(), k, out.data_ptr(), a.shape[0])
+    return out
 
 
 def verify_tiles(fields, want_odd, parity_req, has_t2, neg1, neg2, valid):

@@ -307,3 +307,40 @@ def mixed_items(n_inputs: int, seed: int, corrupt_rate: float = 0.01):
             corrupted.append(i == bad)
         t += 1
     return items, corrupted
+
+
+def perturbed_panel(verifier, packed, n_lanes: int, rng):
+    """The verify kernel's test panel: `packed` (the verifier's 7-tuple of
+    numpy arrays) cut or padded with pad lanes to `n_lanes`, lane 0 replaced
+    by the crafted collision lane (P = G, R = 2G: the equal-points case the
+    kernel defers), and five disjoint sets of about n_lanes / 160 lanes
+    perturbed: the target, the structural validity, the pubkey x, the parity
+    rules, and the sign of the first GLV half. Returns the seven arrays and
+    the (5, k) perturbed lane indices; `rng` is a numpy Generator."""
+    import numpy as np
+
+    from ..crypto.torch_backend import SigCheck
+
+    packed = [np.array(a[:n_lanes]) for a in packed]
+    n = len(packed[0])
+    if n < n_lanes:  # pad lanes as the packer makes them
+        pad = verifier._pack_lanes([])
+        packed = [np.concatenate([a, np.repeat(p[:1], n_lanes - n, axis=0)])
+                  for a, p in zip(packed, pad)]
+    f, wo, par, h2, n1, n2, val = packed
+    qx, qy = _g_mul(2)
+    coll = verifier._pack_lanes(verifier._prep_lanes([SigCheck(
+        "tweak", (qx.to_bytes(32, "big"), qy & 1, H.G_X.to_bytes(32, "big"),
+                  (1).to_bytes(32, "big")))]))
+    for a, c in zip(packed, coll):
+        a[0] = c[0]
+    # ~5 x 50 perturbed lanes at 8,192; none where lane 0 is all there is.
+    per = min(max(1, n_lanes // 160), (n_lanes - 1) // 5)
+    idx = rng.permutation(np.arange(1, n_lanes))[: 5 * per].reshape(5, per)
+    f[idx[0], 3, 0] ^= 1  # target
+    val[idx[1]] = False  # structurally invalid
+    f[idx[2], 2, 0] ^= 1  # pubkey x
+    par[idx[3]] = np.where(par[idx[3]] < 0, par[idx[3]], par[idx[3]] ^ 1)
+    wo[idx[3]] ^= 1  # parity rules
+    n1[idx[4]] ^= 1  # GLV sign
+    return (f, wo, par, h2, n1, n2, val), idx

@@ -17,7 +17,14 @@ Phases, each printing its own lines; any failure exits non-zero:
    path bit for bit. The kernel's launch count is read around this call alone.
 4. Kernel against its plain version on the card: the first 8,192 lanes of
    that batch, a few hundred perturbed and one crafted collision lane; `ok`
-   and `needs_host` must be bit-identical. Times by CUDA events.
+   and `needs_host` must be bit-identical. Times by CUDA events; the
+   operation bound counts the schedule's field squares and multiplies on
+   these inputs. Every launch takes the contract's dynamic shared bytes,
+   which the C launcher refuses unless they are the kernel's. Then its
+   field layer alone against the integer model on edge and seeded operands,
+   and a width sweep: kernel ms at 64, 4,908, 8,192 and 32,768 lanes (the
+   panel tiled), each compared with the plain version on a sample of lanes,
+   with the SM clock and power draw read while it runs back to back.
 5. The kernel prover (`analysis/registry.py`), after the main path so that
    its tracing leaves the main path's timing alone: every non-heavy entry
    must prove, `verify_tiles`'s launch contract included (8,192 and 4,908
@@ -30,8 +37,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    defects instrumented (8, 256). Each is held to its plain version on the
    card at tolerance 0 (the defects: output, write counts and faults), and
    timed by CUDA events per call (`ms`: what a caller waits, the wrapper's
-   host cost included) and by torch.profiler on the card alone
-   (`device_ms`).
+   host cost included; the median of 7 rounds of 200 calls, and where one
+   PyTorch call computes the same function, the two are timed in turns) and by
+   torch.profiler on the card alone (`device_ms`).
 7. A `kernels` JSON line, the card line, and the result line.
 
 The script needs the repository beside it; with no CUDA device, or alone in
@@ -59,11 +67,16 @@ H100_BYTES_PER_S = 3.35e12
 # Published peaks (NVIDIA's H100 SXM data sheet, dense).
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores
 H100_TF32_FLOPS = 495e12
-# int32 operations per 256-bit field multiply in csrc/verify_tiles.cu,
-# counted from the source: 64 32x32->64 multiply-accumulates at 3 int32
-# operations each (a wide multiply-add is two, the carry add one), plus
-# about 48 for the reduction mod p.
+# int32 operations per 256-bit field multiply and square, the yardstick of
+# the bound: 32x32->64 multiply-accumulates at 3 int32 operations each (a
+# wide multiply-add is two, the carry add one), 64 for a multiply and 36 for
+# a square (each cross product once, and the diagonal), plus about 48 for
+# the reduction mod p, as counted from the first kernel's source. It counts
+# the work the schedule needs, not any one kernel's instructions, so every
+# version of the kernel is held to one bound.
 INT_OPS_PER_FE_MUL = 64 * 3 + 48
+INT_OPS_PER_FE_SQR = 36 * 3 + 48
+SWEEP_WIDTHS = (64, 4908, 8192, 32768)
 P = 2**256 - 2**32 - 977
 TOYS = "bitcoinconsensus_tpu/analysis/pallas_check.py"
 TOY_SOURCE = "bitcoinconsensus_tpu_torch/csrc/toy_kernels.cu"
@@ -103,40 +116,47 @@ def _nvidia_smi() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-def _fe_muls_per_lane(fields, valid_in):
-    """Field multiplies each lane of the kernel performs on these inputs,
-    following csrc/verify_tiles.cu's control flow: fixed lift and table
-    work, 5 doublings per window once R is finite, one mixed add per
-    nonzero digit (the first one of each ladder is a free lift), the join,
-    and the affine step for lanes that reach it."""
+def _fe_ops_per_lane(fields, valid_in):
+    """(squares, multiplies) of field elements each lane of the kernel
+    performs on these inputs, following csrc/verify_tiles.cu's control flow:
+    fixed lift and table work, 5 doublings per window once R is finite, one
+    mixed add per nonzero digit (the first one of each ladder is a free
+    lift), the join, and the affine step for lanes that reach it."""
     import numpy as np
 
-    LIFT = 2 + 266 + 1  # x^3, the (p+1)/4 chain, the square check
-    TABLE = 7 + 14 * 11 + 14 + 15 * 4
-    DBL, MADD, JOIN, AFFINE = 7, 11, 16, 270 + 4
-    counts = np.zeros(fields.shape[0], dtype=np.int64)
+    # (squares, multiplies) of each piece of the schedule.
+    LIFT = (1 + 253 + 1, 1 + 13)  # x^3, the (p+1)/4 chain, the square check
+    # one doubling, 14 mixed adds, the rescale: a running product of the
+    # ratios, then per row c^2, c^3 and the two coordinates
+    TABLE = (5 + 14 * 4 + 15, 2 + 14 * 7 + 14 + 15 * 3)
+    DBL, MADD, JOIN = (5, 2), (4, 7), (5, 11)
+    AFFINE = (255 + 1, 15 + 3)  # the p-2 chain, then Z^-2 and Z^-3 applied
+    counts = np.zeros((fields.shape[0], 2), dtype=np.int64)
     for i in range(fields.shape[0]):
         b1 = int.from_bytes(fields[i, 1, :16].tobytes(), "little")
         b2 = int.from_bytes(fields[i, 1, 16:].tobytes(), "little")
         d1, d2 = _signed_mags(b1), _signed_mags(b2)
-        muls, r_inf = LIFT + TABLE, True
+        dbl = madd = beta = 0
+        r_inf = True
         for w in range(25, -1, -1):
             if not r_inf:
-                muls += 5 * DBL
-            for d, beta in ((d1[w], 0), (d2[w], 1)):
+                dbl += 5
+            for d, h in ((d1[w], 0), (d2[w], 1)):
                 if d:
-                    muls += beta + (0 if r_inf else MADD)
+                    beta += h
+                    madd += 0 if r_inf else 1
                     r_inf = False
-        muls += 1  # back to the true curve's Z
         g = [b for b in fields[i, 0].tobytes() if b]
-        muls += MADD * max(len(g) - 1, 0) + JOIN
+        madd += max(len(g) - 1, 0)
         x = int.from_bytes(fields[i, 2].tobytes(), "little") % P
         rhs = (x * x * x + 7) % P
         residue = pow(rhs, (P - 1) // 2, P) in (0, 1)
-        if valid_in[i] and residue:
-            muls += AFFINE
-        counts[i] = muls
-    return counts
+        affine = 1 if (valid_in[i] and residue) else 0
+        for k in (0, 1):
+            counts[i, k] = (LIFT[k] + TABLE[k] + dbl * DBL[k] + madd * MADD[k]
+                            + JOIN[k] + affine * AFFINE[k])
+        counts[i, 1] += beta + 1  # the λ half's x·β; back to the true Z
+    return counts[:, 0], counts[:, 1]
 
 
 def _mul_toy_ops_per_column() -> int:
@@ -185,6 +205,49 @@ def _timed(fn, reps, device):
     for _ in range(reps):
         fn()
     return (time.perf_counter() - t) * 1e3 / reps
+
+
+def _clocks_during(fn, seconds=0.6):
+    """The card's SM clock (MHz) and power draw (W) read by nvidia-smi while
+    `fn` runs back to back for about `seconds`."""
+    import threading
+
+    import torch
+
+    seen = {}
+
+    def read():
+        time.sleep(seconds / 2)
+        proc = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader,nounits"], capture_output=True, text=True,
+            timeout=60)
+        seen["smi"] = proc.stdout.strip().splitlines()[0] if proc.returncode == 0 else ""
+
+    th = threading.Thread(target=read)
+    th.start()
+    t0 = time.perf_counter()
+    while th.is_alive() or time.perf_counter() - t0 < seconds:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+    th.join()
+    parts = [p.strip() for p in seen.get("smi", "").split(",")]
+    return (parts + ["?", "?"])[:2]
+
+
+def _timed_turns(fns, reps, rounds, device):
+    """Median ms per call of each of `fns`, timed as `_timed` does in turns
+    (a, b, ..., then the reverse order, `rounds` times over), so that the
+    host's drift between them cancels."""
+    import statistics
+
+    times = [[] for _ in fns]
+    for r in range(rounds):
+        order = list(range(len(fns)))
+        for i in (order if r % 2 == 0 else order[::-1]):
+            times[i].append(_timed(fns[i], reps, device))
+    return [statistics.median(t) for t in times]
 
 
 def _device_ms(fn, reps, kernel: str):
@@ -246,6 +309,52 @@ def _prover() -> None:
         _fail("kernel prover: " + "; ".join(bad))
 
 
+def _ptxas(log: str, kernel: str):
+    """registers, stack frame, spill stores and loads, and static shared
+    bytes of `kernel` from nvcc's `-Xptxas -v` output (None where absent)."""
+    out = dict(registers=None, stack_frame=None, spill_stores=None,
+               spill_loads=None, static_smem=0)
+    lines = log.splitlines()
+    for i, ln in enumerate(lines):
+        if "Function properties for" in ln and kernel in ln:
+            for nxt in lines[i + 1:i + 3]:
+                m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                              r"stores, (\d+) bytes spill loads", nxt)
+                if m:
+                    out.update(stack_frame=int(m[1]), spill_stores=int(m[2]),
+                               spill_loads=int(m[3]))
+                m = re.search(r"Used (\d+) registers", nxt)
+                if m:
+                    out["registers"] = int(m[1])
+                m = re.search(r"(\d+) bytes smem", nxt)
+                if m:
+                    out["static_smem"] = int(m[1])
+    return out
+
+
+def _field_check(VT, device, rng):
+    """The kernel's field layer on the card against the integer model, every
+    operation, on edge values and seeded operands: the number of words that
+    differ."""
+    import torch
+
+    p = 2**256 - 0x1000003D1
+    edge = [0, 1, p - 1, p, p + 1, 2**256 - 1, 2**255, 0x1000003D1]
+    rand = [int.from_bytes(rng.bytes(32), "little") for _ in range(512)]
+    lazy = [p + int(rng.integers(0, 0x1000003D1)) for _ in range(64)]
+    a = [x for x in edge for _ in edge] + rand + lazy
+    b = [y for _ in edge for y in edge] + rand[::-1] + lazy[::-1]
+    aw = torch.from_numpy(VT.ints_to_words(a).copy())
+    bw = torch.from_numpy(VT.ints_to_words(b).copy())
+    bad = 0
+    for op, k in [("mul", 0), ("sqr", 0), ("add", 0), ("sub", 0),
+                  ("mul_int", 2), ("mul_int", 8), ("canon", 0), ("is_zero", 0)]:
+        got = VT.field_op(op, aw.to(device), bw.to(device), k).cpu()
+        want = VT.field_op(op, aw, bw, k)
+        bad += int((got != want).sum())
+    return len(a), bad
+
+
 def _signed_mags(v: int):
     out, carry = [], 0
     for w in range(26):
@@ -270,7 +379,7 @@ def main() -> int:
         return 2
     port = _import_port()
     from bitcoinconsensus_tpu_torch import api
-    from bitcoinconsensus_tpu_torch.crypto.torch_backend import SigCheck, TorchSecpVerifier
+    from bitcoinconsensus_tpu_torch.crypto.torch_backend import TorchSecpVerifier
     from bitcoinconsensus_tpu_torch.models.batch import verify_batch
     from bitcoinconsensus_tpu_torch.models.sigcache import ScriptExecutionCache, SigCache
     from bitcoinconsensus_tpu_torch.ops import _build
@@ -305,6 +414,10 @@ def main() -> int:
             for ln in built.log.splitlines():
                 if re.search(r"registers|spill|stack frame", ln):
                     print("  ptxas: " + ln.strip(), flush=True)
+        vt_ptxas = _ptxas(builds[0].log, "vt_verify_kernel")
+        _line("ptxas", kernel="vt_verify_kernel", **vt_ptxas,
+              dynamic_smem=VT.VERIFY_TILES_CONTRACT.dynamic_smem_bytes(),
+              build_s=f"{builds[0].seconds:.2f}")
 
     def sync():
         if device.type == "cuda":
@@ -383,29 +496,8 @@ def main() -> int:
 
     # -- 4. kernel against its plain version -------------------------------------
     lanes = verifier._prep_lanes(sent[:n_lanes])
-    packed = [np.array(a[:n_lanes]) for a in verifier._pack_lanes(lanes)]
-    f, wo, par, h2, n1, n2, val = packed
-    n = len(lanes)
-    if n < n_lanes:  # pad lanes as the packer makes them
-        pad = verifier._pack_lanes([])
-        packed = [np.concatenate([a, np.repeat(p[:1], n_lanes - n, axis=0)])
-                  for a, p in zip(packed, pad)]
-        f, wo, par, h2, n1, n2, val = packed
-    qx, qy = blockgen._g_mul(2)
-    coll = verifier._pack_lanes(verifier._prep_lanes([SigCheck(
-        "tweak", (qx.to_bytes(32, "big"), qy & 1,
-                  (0x79BE667EF9DCBBAC55A06295CE870B07029BFCDB2DCE28D959F2815B16F81798
-                   ).to_bytes(32, "big"), (1).to_bytes(32, "big")))]))
-    for a, c in zip((f, wo, par, h2, n1, n2, val), coll):
-        a[0] = c[0]
-    per = max(1, n_lanes // 160)  # ~5 x 50 perturbed lanes at full width
-    idx = rng.permutation(np.arange(1, n_lanes))[: 5 * per].reshape(5, per)
-    f[idx[0], 3, 0] ^= 1  # target
-    val[idx[1]] = False  # structurally invalid
-    f[idx[2], 2, 0] ^= 1  # pubkey x
-    par[idx[3]] = np.where(par[idx[3]] < 0, par[idx[3]], par[idx[3]] ^ 1)
-    wo[idx[3]] ^= 1  # parity rules
-    n1[idx[4]] ^= 1  # GLV sign
+    (f, wo, par, h2, n1, n2, val), idx = blockgen.perturbed_panel(
+        verifier, verifier._pack_lanes(lanes), n_lanes, rng)
     dev = verifier.to_device((f, wo, par, h2, n1, n2, val))
 
     ok_k, nd_k = VT.verify_tiles(*dev)
@@ -422,17 +514,52 @@ def main() -> int:
 
     kernel_ms = _timed(lambda: VT.verify_tiles(*dev), 1 if rehearse else 20, device)
     plain_ms = _timed(lambda: VT.verify_tiles_reference(*dev), 1, device)
-    muls = _fe_muls_per_lane(f, val)
-    int_ops = float(muls.sum()) * INT_OPS_PER_FE_MUL
+    sqrs, muls = _fe_ops_per_lane(f, val)
+    int_ops = (float(sqrs.sum()) * INT_OPS_PER_FE_SQR
+               + float(muls.sum()) * INT_OPS_PER_FE_MUL)
     nbytes = n_lanes * (128 + 5 * 4 + 1 + 2 * 4) + 32 * 255 * 2 * 32
     op_ms = int_ops / H100_INT32_OPS * 1e3
     byte_ms = nbytes / H100_BYTES_PER_S * 1e3
     bound_ms = max(op_ms, byte_ms)
     _line("kernel_time", lanes=n_lanes, kernel_ms=f"{kernel_ms:.4f}",
-          plain_ms=f"{plain_ms:.3f}", fe_muls_per_lane=f"{muls.mean():.1f}",
+          plain_ms=f"{plain_ms:.3f}", fe_sqrs_per_lane=f"{sqrs.mean():.1f}",
+          fe_muls_per_lane=f"{muls.mean():.1f}",
           int_ops=f"{int_ops:.4g}", op_bound_ms=f"{op_ms:.4f}",
           byte_bound_ms=f"{byte_ms:.6f}",
           roofline_share=f"{bound_ms / kernel_ms:.4f}")
+
+    if not rehearse:
+        n_ops, bad_words = _field_check(VT, device, rng)
+        _line("field", operands=n_ops, ops=8, tolerance=0, words_differing=bad_words)
+        if bad_words:
+            _fail("the kernel's field layer disagrees with the integer model")
+
+    # Width sweep: the panel tiled to the widest width; each width's kernel
+    # result is compared with the plain version on a sample of its lanes.
+    widths = (16, 64) if rehearse else SWEEP_WIDTHS
+    reps = max(widths) // n_lanes + 1
+    tiled = [np.ascontiguousarray(np.concatenate([a] * reps)[:max(widths)])
+             for a in (f, wo, par, h2, n1, n2, val)]
+    for width in widths:
+        args = verifier.to_device([a[:width] for a in tiled])
+        ok_w, nd_w = VT.verify_tiles(*args)
+        pick = np.sort(rng.choice(width, size=min(width, 256), replace=False))
+        sample = verifier.to_device([np.ascontiguousarray(a[:width][pick])
+                                     for a in tiled])
+        ok_s, nd_s = VT.verify_tiles_reference(*sample)
+        sync()
+        idx_t = torch.from_numpy(pick).to(device)
+        err_w = max(int((ok_w[idx_t].int() - ok_s.int()).abs().max()),
+                    int((nd_w[idx_t].int() - nd_s.int()).abs().max()))
+        ms_w = _timed(lambda: VT.verify_tiles(*args), 1 if rehearse else 10, device)
+        clock, watts = ("cpu", "cpu") if rehearse else \
+            _clocks_during(lambda: VT.verify_tiles(*args))
+        _line("sweep", lanes=width, kernel_ms=f"{ms_w:.4f}",
+              ns_per_lane=f"{ms_w * 1e6 / width:.1f}", sample=len(pick),
+              tolerance=0, max_abs_err=err_w, sm_clock_mhz=clock,
+              power_w=watts)
+        if err_w:
+            _fail(f"kernel and plain version disagree at {width} lanes")
 
     kernels = [{
         "name": "verify_tiles",
@@ -527,9 +654,12 @@ def main() -> int:
             err = float((out.double() - plain.double()).abs().max())
             err = int(err) if err.is_integer() else err
             extra = {}
-        ms = _timed(lambda: wrapper(x), 1 if rehearse else 200, device)
+        # Every toy by one measure: the median of 7 rounds of 200 calls, the
+        # kernel's call and the library's (where there is one) in turns.
+        fns = [lambda: wrapper(x)] + ([library] if library else [])
+        got = _timed_turns(fns, 1 if rehearse else 200, 1 if rehearse else 7, device)
+        ms, lib_ms = got[0], (got[1] if library else None)
         p_ms = _timed(plain_fn, 1 if rehearse else 20, device)
-        lib_ms = _timed(library, 200, device) if library else None
         dev_ms = None if rehearse else _device_ms(lambda: wrapper(x), 50, symbol)
         b_ms, b_by = _bound(nbytes_t, ops_t, rate)
         _line("toys", kernel=f"toy_{name}", shape=json.dumps(list(x.shape)),

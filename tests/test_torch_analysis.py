@@ -247,10 +247,25 @@ def test_reports_without_contract_facts_omit_the_fields():
 def test_verify_tiles_contract_is_clean_at_main_path_widths():
     rep = registry.get_kernel("cuda.verify_tiles").analyze()
     assert rep.ok, rep.violations[:3]
-    assert rep.grid == (8192 // 64,) and rep.smem_peak_bytes == 0
+    # The kernel's dynamic shared memory (its lanes' P tables, ratios and
+    # chain slots) counts against the block's limit.
+    assert rep.grid == (8192 // 64,) and rep.smem_peak_bytes == 96256
+    assert VT.VERIFY_TILES_CONTRACT.dynamic_smem_bytes() == 96256
     assert rep.notes == ["contract checked at 8192 lanes",
                          "contract checked at 4908 lanes"]
     assert VT.VERIFY_TILES_CONTRACT.grid((4908, 4, 32)) == (77,)
+
+
+def test_dynamic_shared_memory_counts_against_the_block_limit():
+    import dataclasses
+
+    big = dataclasses.replace(
+        VT.VERIFY_TILES_CONTRACT,
+        dynamic_smem=VT.VERIFY_TILES_CONTRACT.dynamic_smem * 3)  # 288,768 bytes
+    rep = K.check_contract(big, registry.vt_specs(128), "vt.too_much_smem",
+                           prove_body=False)
+    assert not rep.ok and _kinds(rep) == {"smem"}
+    assert "288768 bytes" in rep.violations[0].msg
 
 
 # -- (c) the toys' plain versions and their CUDA arithmetic ----------------------

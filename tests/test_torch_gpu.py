@@ -9,7 +9,9 @@ imports nothing of JAX, so it runs where only the port is installed:
 (`--noconftest`: the suite's conftest configures JAX.)
 """
 
+import ctypes
 import hashlib
+import re
 
 import numpy as np
 import pytest
@@ -21,6 +23,7 @@ from bitcoinconsensus_tpu_torch.crypto import secp_host as H
 from bitcoinconsensus_tpu_torch.crypto.torch_backend import SigCheck, TorchSecpVerifier
 from bitcoinconsensus_tpu_torch.models.batch import verify_batch
 from bitcoinconsensus_tpu_torch.models.sigcache import ScriptExecutionCache, SigCache
+from bitcoinconsensus_tpu_torch.ops import _build, launch
 from bitcoinconsensus_tpu_torch.ops import limbs as L
 from bitcoinconsensus_tpu_torch.ops import verify_tiles as VT
 from bitcoinconsensus_tpu_torch.ops.contract import run_contract
@@ -96,6 +99,121 @@ def test_kernel_ragged_width():
     args = [np.ascontiguousarray(a[:5]) for a in v._pack_lanes(v._prep_lanes(checks))]
     ok, needs = VT.verify_tiles(*v.to_device(args))
     assert ok.shape == (5,) and ok.all().item() and not needs.any().item()
+
+
+def _panel_lanes(width: int, seed: int):
+    """`width` lanes: 128 mixed checks tiled, then chip_smoke's perturbations
+    (`blockgen.perturbed_panel`: the collision lane at 0, five perturbed
+    sets)."""
+    v = TorchSecpVerifier()
+    packed = [np.array(a[:128]) for a in v._pack_lanes(v._prep_lanes(_checks(128)))]
+    reps = width // 128 + 1
+    tiled = [np.concatenate([a] * reps)[:width] for a in packed]
+    args, _ = B.perturbed_panel(v, tiled, width, np.random.default_rng(seed))
+    return v, args
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", [1, 63, 65, 4908, 8192])
+def test_redesigned_kernel_bit_identical_at_ragged_widths(width):
+    _need_cuda()
+    v, args = _panel_lanes(width, seed=width)
+    dev = v.to_device(args)
+    before = VT.verify_tiles.launches
+    ok, needs = VT.verify_tiles(*dev)
+    torch.cuda.synchronize()
+    assert VT.verify_tiles.launches == before + 1
+    want_ok, want_needs = VT.verify_tiles_reference(*dev)
+    assert torch.equal(ok, want_ok) and torch.equal(needs, want_needs)
+    assert bool(needs[0]) and not bool(ok[0])  # the collision lane defers
+    if width >= 4908:
+        assert int(ok.sum()) > width // 2  # most lanes are honest
+
+
+@pytest.mark.gpu
+def test_launch_other_than_the_contract_is_refused():
+    _need_cuda()
+    v, args = _panel_lanes(65, seed=1)
+    dev = v.to_device(args)
+    fn = launch.bind("verify_tiles", "vt_verify_tiles")
+    gtab = VT.gtable_words(dev[0].device)
+    out = torch.zeros((2, 65), dtype=torch.int32, device=dev[0].device)
+    ptrs = [t.data_ptr() for t in dev] + [gtab.data_ptr(), out.data_ptr()]
+    c = VT.VERIFY_TILES_CONTRACT
+    smem = c.dynamic_smem_bytes()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def raw(*vals):  # the launcher's packed arguments, the stream last
+        return fn((ctypes.c_int64 * 16)(*vals))
+
+    for grid, threads, nbytes in [(2, 64, 0), (2, 64, smem - 4), (1, 128, smem),
+                                  (3, 64, smem), (2, 32, smem)]:
+        assert raw(*ptrs, 65, grid, threads, nbytes, stream) != 0, (grid, threads, nbytes)
+    torch.cuda.synchronize()
+    assert not out.any()  # nothing ran
+    assert raw(*ptrs, 65, 2, 64, smem, stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out[0] != 0, VT.verify_tiles_reference(*dev)[0])
+
+
+@pytest.mark.gpu
+def test_kernel_attributes_match_the_contract():
+    """ptxas's report of the kernel: no stack frame and no spills (the lane
+    lives in registers, its indexed slots in shared memory), no static
+    shared memory; and a launch with the contract's dynamic bytes runs."""
+    _need_cuda()
+    log = _build.build("verify_tiles").log
+    lines = log.splitlines()
+    at = [i for i, ln in enumerate(lines)
+          if "Function properties for" in ln and "vt_verify_kernel" in ln]
+    assert at, "ptxas -v printed nothing for vt_verify_kernel"
+    props = " ".join(lines[at[0] + 1:at[0] + 3])
+    m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                  r"(\d+) bytes spill loads", props)
+    assert m and (int(m[1]), int(m[2]), int(m[3])) == (0, 0, 0), props
+    m = re.search(r"(\d+) bytes smem", props)
+    assert m is None or int(m[1]) == 0, props
+    smem = VT.VERIFY_TILES_CONTRACT.dynamic_smem_bytes()
+    assert smem == 96256
+    v, args = _panel_lanes(1, seed=2)
+    dev = v.to_device(args)
+    assert torch.equal(VT.verify_tiles(*dev)[0], VT.verify_tiles_reference(*dev)[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op,k", [("mul", 0), ("sqr", 0), ("add", 0), ("sub", 0),
+                                  ("mul_int", 3), ("canon", 0), ("is_zero", 0)])
+def test_field_layer_on_cuda_matches_integer_model(op, k):
+    _need_cuda()
+    p = 2**256 - 0x1000003D1
+    edge = [0, 1, p - 1, p, p + 1, 2**256 - 1, 2**255, 0x1000003D1]
+    rng = np.random.default_rng(len(op))
+    rand = [int.from_bytes(rng.bytes(32), "little") for _ in range(300)]
+    a = [x for x in edge for _ in edge] + rand
+    b = [y for _ in edge for y in edge] + rand[::-1]
+    aw = torch.from_numpy(VT.ints_to_words(a).copy())
+    bw = torch.from_numpy(VT.ints_to_words(b).copy())
+    got = VT.field_op(op, aw.cuda(), bw.cuda(), k).cpu()
+    assert torch.equal(got, VT.field_op(op, aw, bw, k))
+
+
+@pytest.mark.gpu
+def test_toy_positive_lean_path_counts_and_checks():
+    _need_cuda()
+    x = torch.arange(8 * 256, dtype=torch.int32).reshape(8, 256).cuda()
+    before = K.toy_positive.launches
+    outs = [K.toy_positive(x) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert K.toy_positive.launches == before + 3
+    for o in outs:
+        assert torch.equal(o, x + 1)
+    with pytest.raises(ValueError):
+        K.toy_positive(x.t().contiguous().t())  # not contiguous
+    with pytest.raises(ValueError):
+        K.toy_positive(x.to(torch.int64))
+    with pytest.raises(ValueError):
+        K.toy_positive(x[:4])
+    assert K.toy_positive.launches == before + 3
 
 
 @pytest.mark.gpu
