@@ -9,14 +9,17 @@ Layout (the JAX package's names, so each counterpart is easy to find):
 - ``core``    — host consensus engine: tx codec, interpreter, sighash
 - ``crypto``  — secp256k1 host oracle, GLV split, the batched verifier
 - ``ops``     — field and group ops as torch ops, the verify kernel's
-                wrapper and plain version, the nvcc build
-- ``csrc``    — CUDA sources
+                wrapper and plain version, the nvcc and g++ builds
+- ``csrc``    — CUDA sources, and the native host core (``csrc/native``)
+- ``native_bridge`` — ctypes surface of the native host core
 - ``models``  — `verify_batch` and its caches
 - ``utils``   — hashing, synthetic spends for tests and chip_smoke.py
 
 Entry points run on the card unless the caller asks for the CPU:
 ``verify_batch(items)`` builds ``TorchSecpVerifier()`` on cuda:0;
-``TorchSecpVerifier(device="cpu")`` runs the plain torch version.
+``TorchSecpVerifier(device="cpu")`` runs the plain torch version. Host work
+runs on the native host core (built with g++ at first use; a failed build
+raises) unless the caller passes ``engine="python"``.
 """
 
 from .api import (

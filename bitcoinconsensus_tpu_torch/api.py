@@ -1,11 +1,13 @@
 """Per-input API: the exact host path, one input at a time.
 
-Port of `bitcoinconsensus_tpu/api.py` on the Python engine: ``verify``,
-``verify_with_flags``, ``verify_with_spent_outputs``, the transport-level
-error enum, the libconsensus flag subset restriction and the check order of
-the reference C ABI shim (`script/bitcoinconsensus.cpp:74-129`: flags →
-deserialize → index → size). Every signature here is checked by the host
-oracle `crypto/secp_host.py`; the batched device path is
+Port of `bitcoinconsensus_tpu/api.py`: ``verify``, ``verify_with_flags``,
+``verify_with_spent_outputs``, the transport-level error enum, the
+libconsensus flag subset restriction and the check order of the reference C
+ABI shim (`script/bitcoinconsensus.cpp:74-129`: flags → deserialize → index
+→ size). Each input runs on the native host core in exact mode
+(`native_bridge`, every signature checked on the host); `engine="python"`
+runs the Python engine, `core/` with the `crypto/secp_host.py` oracle, the
+spec both are held to. The batched device path is
 `models/batch.verify_batch`, held bit-identical to this module.
 """
 
@@ -14,6 +16,7 @@ from __future__ import annotations
 import enum
 from typing import Optional, Sequence, Tuple
 
+from . import native_bridge
 from .core.flags import (
     ALL_FLAG_BITS,
     LIBCONSENSUS_FLAGS,
@@ -70,11 +73,40 @@ def _verify_input(
     flags: int,
     allowed_flags: int,
     spent_outputs: Optional[Sequence[TxOut]] = None,
+    engine: str = "native",
 ) -> None:
     """Shared body of the verify entry points; mirrors
-    bitcoinconsensus.cpp:79-101 verify_script check order."""
+    bitcoinconsensus.cpp:79-101 verify_script check order on either
+    engine."""
+    native = native_bridge.use_native(engine)
     if flags & ~allowed_flags:
         raise ConsensusError(Error.ERR_INVALID_FLAGS)
+
+    if native:
+        try:
+            ntx = native_bridge.NativeTx(spending_transaction)
+        except ValueError:
+            raise ConsensusError(Error.ERR_TX_DESERIALIZE) from None
+        # nIn is unsigned in the reference ABI: negative is out of range.
+        if input_index < 0 or input_index >= ntx.n_inputs:
+            raise ConsensusError(Error.ERR_TX_INDEX)
+        if ntx.ser_size != len(spending_transaction):
+            raise ConsensusError(Error.ERR_TX_SIZE_MISMATCH)
+        if spent_outputs is not None:
+            if len(spent_outputs) != ntx.n_inputs:
+                raise ConsensusError(Error.ERR_TX_INDEX)
+            ntx.set_spent_outputs([(o.value, o.script_pubkey) for o in spent_outputs])
+        else:
+            if flags & VERIFY_TAPROOT:
+                raise ConsensusError(Error.ERR_AMOUNT_REQUIRED)
+            ntx.precompute()
+        ok, err_code, _ = native_bridge.NativeSession().verify_input(
+            ntx, input_index, amount, spent_output_script, flags,
+            mode=native_bridge.NativeSession.MODE_EXACT,
+        )
+        if not ok:
+            raise ConsensusError(Error.ERR_SCRIPT, ScriptError(err_code))
+        return
 
     try:
         tx = Tx.deserialize(spending_transaction)
@@ -113,11 +145,14 @@ def verify(
     amount: int,
     spending_transaction: bytes,
     input_index: int,
+    *,
+    engine: str = "native",
 ) -> None:
     """verify() (src/lib.rs:103-111): VERIFY_ALL under libconsensus flags.
     Raises ConsensusError on failure; returns None on success."""
     _verify_input(spent_output, amount, spending_transaction, input_index,
-                  VERIFY_ALL_LIBCONSENSUS, allowed_flags=LIBCONSENSUS_FLAGS)
+                  VERIFY_ALL_LIBCONSENSUS, allowed_flags=LIBCONSENSUS_FLAGS,
+                  engine=engine)
 
 
 def verify_with_flags(
@@ -126,11 +161,14 @@ def verify_with_flags(
     spending_transaction: bytes,
     input_index: int,
     flags: int,
+    *,
+    engine: str = "native",
 ) -> None:
     """verify_with_flags (src/lib.rs:113-139): only libconsensus flag bits
     are accepted, as in the reference C ABI."""
     _verify_input(spent_output_script, amount, spending_transaction,
-                  input_index, flags, allowed_flags=LIBCONSENSUS_FLAGS)
+                  input_index, flags, allowed_flags=LIBCONSENSUS_FLAGS,
+                  engine=engine)
 
 
 def verify_with_spent_outputs(
@@ -138,6 +176,8 @@ def verify_with_spent_outputs(
     input_index: int,
     spent_outputs: Sequence[Tuple[int, bytes]],
     flags: int = VERIFY_ALL_EXTENDED,
+    *,
+    engine: str = "native",
 ) -> None:
     """All spent outputs supplied, so taproot is reachable. `spent_outputs`
     is a sequence of (amount, scriptPubKey), one per input."""
@@ -152,4 +192,5 @@ def verify_with_spent_outputs(
         flags,
         allowed_flags=ALL_FLAG_BITS,
         spent_outputs=outs,
+        engine=engine,
     )

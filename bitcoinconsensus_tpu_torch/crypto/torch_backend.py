@@ -10,13 +10,17 @@ kinds reduce to R = a·G + b·P compared against a target:
     tweak     t        1      lift_x(pki)  R.x == out_x and parity matches
 
 The host parses and range-checks each check, inverts the ECDSA s values in
-one batch mod n, hashes the BIP340 challenges with hashlib, splits b by the
-GLV endomorphism and packs each lane as 4 x 32 bytes plus 6 flags. The
-device side is `ops/verify_tiles.verify_tiles`: the hand-written CUDA
-kernel on a card, its plain torch version on the CPU. Lanes the kernel
+one batch mod n, hashes the BIP340 challenges, splits b by the GLV
+endomorphism and packs each lane as 4 x 32 bytes plus 6 flags: in one call
+of the native host core (`native_bridge.prep_pack`) by default, or with
+`engine="python"` through `_prep_lanes` / `_pack_lanes`, the spec the core
+is held to byte for byte. The device side is
+`ops/verify_tiles.verify_tiles`: the hand-written CUDA kernel on a card,
+its plain torch version on the CPU. Lanes the kernel
 flags `needs_host` (an equal-points case of its fast additions, reached
 only by crafted scalars) are resolved exactly by the host oracle
-`crypto/secp_host.py`; that fixup is part of the kernel's contract.
+`crypto/secp_host.py` (or its native counterpart, `NativeSecp`); that
+fixup is part of the kernel's contract.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import native_bridge
 from ..ops.limbs import P_INT
 from ..ops.curve import G_X
 from ..ops.verify_tiles import verify_tiles
@@ -201,12 +206,17 @@ class TorchSecpVerifier:
 
     `device=None` means `cuda:0`; without CUDA the constructor raises, and a
     caller that wants the plain torch version passes `device="cpu"`.
+    `engine="native"` (the default) packs lanes and runs the host fixup in
+    the native core, which loads here or raises; `engine="python"` runs the
+    Python packers and the `secp_host` oracle.
     """
 
     MIN_BATCH = 8
     CHUNK = 1 << 13
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, engine: str = "native"):
+        self.native = native_bridge.use_native(engine)
+        self.engine = engine
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -308,7 +318,11 @@ class TorchSecpVerifier:
         for start in range(0, len(checks), cap):
             sub = checks[start : start + cap]
             t0 = time.perf_counter()
-            args = self.to_device(self._pack_lanes(self._prep_lanes(sub)))
+            if self.native:
+                packed = native_bridge.prep_pack(sub, self._pad(len(sub)))
+            else:
+                packed = self._pack_lanes(self._prep_lanes(sub))
+            args = self.to_device(packed)
             self.stats["lane_prep_s"] += time.perf_counter() - t0
             events = None
             if cuda:
@@ -339,7 +353,15 @@ class TorchSecpVerifier:
         return out
 
     def _host_check(self, chk: SigCheck) -> bool:
-        """Exact host resolution of one check (pure-Python oracle)."""
+        """Exact host resolution of one check: the native core's, or the
+        pure-Python oracle's with `engine="python"`."""
+        if self.native:
+            ns = native_bridge.NativeSecp
+            if chk.kind == "ecdsa":
+                return ns.verify_ecdsa(*chk.data)
+            if chk.kind == "schnorr":
+                return ns.verify_schnorr(*chk.data)
+            return ns.tweak_add_check(*chk.data)
         from . import secp_host
 
         if chk.kind == "ecdsa":

@@ -1,6 +1,6 @@
 """`verify_batch()`: many inputs, one signature dispatch on the device.
 
-Port of the Python-engine path of `bitcoinconsensus_tpu/models/batch.py`.
+Port of the wire-mode driver of `bitcoinconsensus_tpu/models/batch.py`.
 The reference parallelises block validation with one `CScriptCheck` per
 input on a thread pool (`checkqueue.h:29-163`); here the parallel axis is
 the signature, through the checker-override seam the reference provides
@@ -18,9 +18,15 @@ the signature, through the checker-override seam the reference provides
    dispatches until a fixpoint. A round cap falls back to the exact host
    checker.
 
+The host steps run on one of two engines, each chosen by the caller and
+never swapped for the other: the native host core (`native_bridge`, the
+default), which parses, precomputes, interprets every input of a phase in
+one C call and digests the cache keys in C++, or the Python engine
+(`core/`, `engine="python"`), the spec the native one is held to.
+
 Results are bit-identical to the per-input `api` entry points, `Error` and
-`ScriptError` included. A device fault raises; it is not retried on the
-host.
+`ScriptError` included, on either engine. A device fault raises; it is not
+retried on the host.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from .. import native_bridge
 from ..api import Error
 from ..core.flags import ALL_FLAG_BITS, LIBCONSENSUS_FLAGS, VERIFY_TAPROOT
 from ..core.interpreter import TransactionSignatureChecker, verify_script
@@ -36,6 +43,8 @@ from ..core.serialize import SerializationError
 from ..core.sighash import PrecomputedTxData
 from ..core.tx import Tx, TxOut
 from ..crypto.torch_backend import SigCheck, TorchSecpVerifier
+from ..native_bridge import NativeSession, NativeTx
+from ..utils.gcpause import gc_paused
 from .sigcache import (
     ScriptExecutionCache,
     SigCache,
@@ -109,8 +118,9 @@ class DeferringSignatureChecker(TransactionSignatureChecker):
 @dataclass
 class _Prepared:
     result: Optional[BatchResult] = None  # set when failed before batching
-    tx: Optional[Tx] = None
+    tx: Optional[Tx] = None  # the Python engine's parse
     txdata: Optional[PrecomputedTxData] = None
+    ntx: Optional[NativeTx] = None  # the native engine's parse
     script_pubkey: bytes = b""
     amount: int = 0
     optimistic: Optional[Tuple[bool, ScriptError]] = None
@@ -131,20 +141,76 @@ def _spent_memo_entry(item: BatchItem, spent_memo: Dict[int, Tuple]):
     return ent
 
 
+def _prepare_native(item: BatchItem, prep: _Prepared,
+                    ntx_cache: Dict[Tuple, Optional[NativeTx]],
+                    spent_memo: Dict[int, Tuple]) -> _Prepared:
+    """The native engine's transport checks, in `_prepare`'s order. Parse
+    and hash precompute run in C++ once per (raw tx, prevouts digest); a
+    prevout list whose length does not match the inputs is not
+    precomputed (the item fails with ERR_TX_INDEX, and so does every item
+    of the same key)."""
+    if item.spent_outputs is not None:
+        spent_outputs, digest = _spent_memo_entry(item, spent_memo)
+    else:
+        spent_outputs, digest = None, None
+    key = (item.spending_tx, digest)
+    if key in ntx_cache:
+        ntx = ntx_cache[key]
+    else:
+        try:
+            ntx = NativeTx(item.spending_tx)
+        except ValueError:
+            ntx = None
+        if ntx is not None:
+            if spent_outputs is None:
+                ntx.precompute()
+            elif len(spent_outputs) == ntx.n_inputs:
+                ntx.set_spent_outputs(item.spent_outputs)
+        ntx_cache[key] = ntx
+    if ntx is None:
+        prep.result = BatchResult(False, Error.ERR_TX_DESERIALIZE)
+        return prep
+    if item.input_index < 0 or item.input_index >= ntx.n_inputs:
+        prep.result = BatchResult(False, Error.ERR_TX_INDEX)
+        return prep
+    if ntx.ser_size != len(item.spending_tx):
+        prep.result = BatchResult(False, Error.ERR_TX_SIZE_MISMATCH)
+        return prep
+    if spent_outputs is not None:
+        if len(spent_outputs) != ntx.n_inputs:
+            prep.result = BatchResult(False, Error.ERR_TX_INDEX)
+            return prep
+        prep.script_pubkey = spent_outputs[item.input_index].script_pubkey
+        prep.amount = spent_outputs[item.input_index].value
+    else:
+        if item.flags & VERIFY_TAPROOT:
+            prep.result = BatchResult(False, Error.ERR_AMOUNT_REQUIRED)
+            return prep
+        prep.script_pubkey = item.spent_output_script or b""
+        prep.amount = item.amount
+    prep.ntx = ntx
+    prep.wtxid = ntx.wtxid
+    return prep
+
+
 def _prepare(
     item: BatchItem,
     tx_cache: Dict[bytes, Tuple[Tx, bool]],
     txdata_cache: Dict[Tuple, PrecomputedTxData],
     spent_memo: Dict[int, Tuple],
+    ntx_cache: Optional[Dict[Tuple, Optional[NativeTx]]] = None,
 ) -> _Prepared:
     """Transport-level validation in the order of bitcoinconsensus.cpp:79-101
-    (flags -> deserialize -> index -> size). PrecomputedTxData is built once
-    per (tx, prevouts digest)."""
+    (flags -> deserialize -> index -> size). With `ntx_cache` (the native
+    engine) parse and precompute run in C++ and no Python Tx is built;
+    without it, PrecomputedTxData is built once per (tx, prevouts digest)."""
     prep = _Prepared()
     allowed = ALL_FLAG_BITS if item.spent_outputs is not None else LIBCONSENSUS_FLAGS
     if item.flags & ~allowed:
         prep.result = BatchResult(False, Error.ERR_INVALID_FLAGS)
         return prep
+    if ntx_cache is not None:
+        return _prepare_native(item, prep, ntx_cache, spent_memo)
 
     try:
         cached = tx_cache.get(item.spending_tx)
@@ -196,16 +262,23 @@ def _prepare(
 
 
 def _prepare_and_probe(items: Sequence[BatchItem],
-                       script_cache: ScriptExecutionCache):
+                       script_cache: ScriptExecutionCache, engine: str):
     """Prepare every item and probe the script-execution cache: a hit
     certifies that this exact (wtxid, input, flags, prevouts) succeeded
     before, so the interpreter and the device are skipped
-    (validation.cpp:1529-1536). Returns (preps, script_keys)."""
+    (validation.cpp:1529-1536). The keys are digested in one call. Returns
+    (native session or None, preps, script_keys)."""
+    native = native_bridge.use_native(engine)
+    nsess = NativeSession() if native else None
     tx_cache: Dict[bytes, Tuple[Tx, bool]] = {}
     txdata_cache: Dict[Tuple, PrecomputedTxData] = {}
     spent_memo: Dict[int, Tuple] = {}
-    preps = [_prepare(item, tx_cache, txdata_cache, spent_memo) for item in items]
+    ntx_cache: Optional[Dict] = {} if native else None
+    preps = [_prepare(item, tx_cache, txdata_cache, spent_memo, ntx_cache)
+             for item in items]
     script_keys: List[Optional[bytes]] = [None] * len(items)
+    probe_idx: List[int] = []
+    probe_parts: List[Tuple[bytes, ...]] = []
     for idx, (item, prep) in enumerate(zip(items, preps, strict=True)):
         if prep.result is not None:
             continue
@@ -215,12 +288,15 @@ def _prepare_and_probe(items: Sequence[BatchItem],
             digest = ScriptExecutionCache.spent_digest(
                 [(item.amount, item.spent_output_script or b"")]
             )
-        key = script_cache.key_for_input(prep.wtxid, item.input_index,
-                                         item.flags, digest)
+        probe_idx.append(idx)
+        probe_parts.append(ScriptExecutionCache._parts(
+            prep.wtxid, item.input_index, item.flags, digest))
+    for idx, key in zip(probe_idx, script_cache.keys_for_parts(probe_parts, engine),
+                        strict=True):
         script_keys[idx] = key
         if script_cache.contains_key(key):
-            prep.result = BatchResult.success()
-    return preps, script_keys
+            preps[idx].result = BatchResult.success()
+    return nsess, preps, script_keys
 
 
 def verify_batch(
@@ -228,44 +304,93 @@ def verify_batch(
     verifier: Optional[TorchSecpVerifier] = None,
     sig_cache: Optional[SigCache] = None,
     script_cache: Optional[ScriptExecutionCache] = None,
+    engine: str = "native",
 ) -> List[BatchResult]:
     """Verify many inputs with one device signature dispatch.
 
     Returns one `BatchResult` per item, bit-identical to the per-input API.
-    `verifier=None` builds a `TorchSecpVerifier()` on cuda:0; pass
-    `TorchSecpVerifier(device="cpu")` to run the plain torch version. The
-    success-only caches default to process-wide instances; pass fresh ones
-    to isolate."""
+    `verifier=None` builds a `TorchSecpVerifier(engine=engine)` on cuda:0;
+    pass `TorchSecpVerifier(device="cpu")` to run the plain torch version.
+    The success-only caches default to process-wide instances; pass fresh
+    ones to isolate. `engine="native"` (the default) parses, interprets and
+    digests in the native host core, which must build and load or this
+    raises; `engine="python"` runs the Python engine, the spec, and needs a
+    verifier of the same engine."""
+    with gc_paused():
+        return _verify_batch(items, verifier, sig_cache, script_cache, engine)
+
+
+def _verify_batch(items, verifier, sig_cache, script_cache, engine):
+    native = native_bridge.use_native(engine)
     if verifier is None:
-        verifier = TorchSecpVerifier()
+        verifier = TorchSecpVerifier(engine=engine)
+    elif verifier.engine != engine:
+        raise ValueError(f"verify_batch(engine={engine!r}) was given a "
+                         f"verifier of engine {verifier.engine!r}")
     if sig_cache is None:
         sig_cache = default_sig_cache()
     if script_cache is None:
         script_cache = default_script_cache()
 
-    preps, script_keys = _prepare_and_probe(items, script_cache)
+    nsess, preps, script_keys = _prepare_and_probe(items, script_cache, engine)
     known: Dict[Tuple, bool] = {}
 
-    def interpret_deferring(item, prep) -> Tuple[bool, ScriptError, int, List[SigCheck]]:
-        checker = DeferringSignatureChecker(
-            prep.tx, item.input_index, prep.amount, prep.txdata, known=known
-        )
-        ok, err = verify_script(
-            prep.tx.vin[item.input_index].script_sig,
-            prep.script_pubkey,
-            prep.tx.vin[item.input_index].witness,
-            item.flags,
-            checker,
-        )
-        return ok, err, checker.unknown, checker.recorded
+    def interpret(idxs: Sequence[int]) -> List[Tuple[bool, ScriptError, int, List[SigCheck]]]:
+        """Deferring interpretation of the inputs `idxs` against `known`:
+        (ok, error, oracle misses, recorded checks) each; the native engine
+        takes them all in one C call."""
+        if native:
+            ok_a, err_a, unk_a, recs = nsess.verify_inputs(
+                [preps[i].ntx for i in idxs],
+                [items[i].input_index for i in idxs],
+                [preps[i].amount for i in idxs],
+                [preps[i].script_pubkey for i in idxs],
+                [items[i].flags for i in idxs],
+                mode=NativeSession.MODE_DEFER,
+            )
+            return [(bool(ok_a[j]), ScriptError(int(err_a[j])), int(unk_a[j]),
+                     [SigCheck(k, d) for k, d in recs[j]])
+                    for j in range(len(idxs))]
+        out = []
+        for i in idxs:
+            item, prep = items[i], preps[i]
+            checker = DeferringSignatureChecker(
+                prep.tx, item.input_index, prep.amount, prep.txdata, known=known
+            )
+            ok, err = verify_script(
+                prep.tx.vin[item.input_index].script_sig,
+                prep.script_pubkey,
+                prep.tx.vin[item.input_index].witness,
+                item.flags,
+                checker,
+            )
+            out.append((ok, err, checker.unknown, checker.recorded))
+        return out
 
     # Phase 1: optimistic interpretation, recording curve checks.
-    for item, prep in zip(items, preps, strict=True):
-        if prep.result is not None:
-            continue
-        ok, err, _unk, checks = interpret_deferring(item, prep)
-        prep.optimistic = (ok, err)
-        prep.checks = checks
+    live = [idx for idx, prep in enumerate(preps) if prep.result is None]
+    for idx, (ok, err, _unk, checks) in zip(live, interpret(live), strict=True):
+        preps[idx].optimistic = (ok, err)
+        preps[idx].checks = checks
+
+    # The native engine also records the CHECKMULTISIG pairings a
+    # misaligned multisig could need: they ride the same dispatch (never
+    # part of any prep's checks, so no optimistic verdict depends on them),
+    # and its re-interpretation then finds every answer known.
+    def drain_spec() -> List[SigCheck]:
+        return [SigCheck(k, d) for k, d in nsess.take_spec()] if native else []
+
+    pushed: set = set()
+
+    def publish_known() -> None:
+        """Publish the results the native oracle has not seen yet."""
+        if not native:
+            return
+        fresh_entries = [(key[0], key[1], val) for key, val in known.items()
+                         if key not in pushed]
+        if fresh_entries:
+            nsess.add_known_batch(fresh_entries)
+            pushed.update((k, d) for k, d, _ in fresh_entries)
 
     def resolve(checks: Sequence[SigCheck]) -> None:
         """Fill `known` for every check: sig-cache probe, then ONE
@@ -277,31 +402,31 @@ def verify_batch(
                 continue
             known[key] = False  # placeholder until probed/dispatched
             todo.append(chk)
-        if not todo:
-            return
-        fresh: List[Tuple[SigCheck, bytes]] = []
-        for chk, ck in zip(todo, sig_cache.keys_for_checks(todo), strict=True):
-            if sig_cache.contains_key(ck):
-                known[(chk.kind, chk.data)] = True
-            else:
-                fresh.append((chk, ck))
-        if fresh:
-            run_res = verifier.verify_checks([c for c, _ in fresh])
-            for (chk, ck), r in zip(fresh, run_res, strict=True):
-                known[(chk.kind, chk.data)] = bool(r)
-                if r:  # success-only insertion, like the reference
-                    sig_cache.add_key(ck)
+        if todo:
+            fresh: List[Tuple[SigCheck, bytes]] = []
+            for chk, ck in zip(todo, sig_cache.keys_for_checks(todo, engine),
+                               strict=True):
+                if sig_cache.contains_key(ck):
+                    known[(chk.kind, chk.data)] = True
+                else:
+                    fresh.append((chk, ck))
+            if fresh:
+                run_res = verifier.verify_checks([c for c, _ in fresh])
+                for (chk, ck), r in zip(fresh, run_res, strict=True):
+                    known[(chk.kind, chk.data)] = bool(r)
+                    if r:  # success-only insertion, like the reference
+                        sig_cache.add_key(ck)
+        publish_known()
 
     # Phase 2: one deduplicated dispatch for every recorded check.
-    resolve([chk for prep in preps for chk in prep.checks])
+    resolve([chk for prep in preps for chk in prep.checks] + drain_spec())
 
     # Phase 3: accept verdicts whose guesses all held; re-interpret the rest
     # against the oracle until a fixpoint, dispatching what they discover.
     final: Dict[int, Tuple[bool, ScriptError]] = {}
     pending: List[int] = []
-    for idx, prep in enumerate(preps):
-        if prep.result is not None:
-            continue
+    for idx in live:
+        prep = preps[idx]
         if all(known[(c.kind, c.data)] for c in prep.checks):
             final[idx] = prep.optimistic
         else:
@@ -312,19 +437,26 @@ def verify_batch(
             break
         new_checks: List[SigCheck] = []
         still: List[int] = []
-        for idx in pending:
-            ok, err, unknown, recorded = interpret_deferring(items[idx], preps[idx])
+        for idx, (ok, err, unknown, recorded) in zip(pending, interpret(pending),
+                                                     strict=True):
             if unknown == 0:
                 final[idx] = (ok, err)  # every oracle read was exact
             else:
                 new_checks.extend(recorded)
                 still.append(idx)
         if still:
-            resolve(new_checks)
+            resolve(new_checks + drain_spec())
         pending = still
 
     for idx in pending:  # round cap hit: exact host checker
         item, prep = items[idx], preps[idx]
+        if native:
+            ok, err_code, _ = nsess.verify_input(
+                prep.ntx, item.input_index, prep.amount, prep.script_pubkey,
+                item.flags, mode=NativeSession.MODE_EXACT,
+            )
+            final[idx] = (ok, ScriptError(err_code))
+            continue
         checker = TransactionSignatureChecker(
             prep.tx, item.input_index, prep.amount, prep.txdata
         )

@@ -13,9 +13,11 @@ Both store successes only, so a cache fault can cost work, never consensus.
   key because callers may supply arbitrary prevouts for the same tx.
 
 Keys are salted per process (`os.urandom`), as the reference salts its
-hashers (sigcache.cpp:22-30). Storage is a bounded LRU behind a mutex, so
-concurrent `verify_batch` calls are safe. Port of
-`bitcoinconsensus_tpu/models/sigcache.py` on hashlib alone.
+hashers (sigcache.cpp:22-30). A batch's keys are digested in one call of
+the native host core (`native_bridge.digest_checks` / `digest_streams`),
+byte-equal to `_key`, which stays the spec and serves `engine="python"`.
+Storage is a bounded LRU behind a mutex, so concurrent `verify_batch`
+calls are safe. Port of `bitcoinconsensus_tpu/models/sigcache.py`.
 """
 
 from __future__ import annotations
@@ -24,7 +26,9 @@ import hashlib
 import os
 import threading
 from collections import OrderedDict
-from typing import Iterable, List, Optional, Tuple
+from typing import Iterable, List, Optional, Sequence, Tuple
+
+from .. import native_bridge
 
 __all__ = [
     "SigCache",
@@ -55,6 +59,13 @@ class _SaltedLRU:
             h.update(len(p).to_bytes(4, "little"))
             h.update(p)
         return h.digest()
+
+    def keys_for_parts(self, items: Sequence[Tuple[bytes, ...]],
+                       engine: str = "native") -> List[bytes]:
+        """`_key` of many part tuples; one native call by default."""
+        if native_bridge.use_native(engine):
+            return native_bridge.digest_streams(self._salt, items)
+        return [self._key(parts) for parts in items]
 
     def contains_key(self, k: bytes) -> bool:
         """Probe by a precomputed digest; a hit refreshes its recency."""
@@ -102,9 +113,13 @@ class SigCache(_SaltedLRU):
             )
         return tuple(parts)
 
-    def keys_for_checks(self, checks) -> List[bytes]:
-        """Digests for many SigCheck-shaped (kind, data) checks."""
-        return [self._key(self._parts(c.kind, c.data)) for c in checks]
+    def keys_for_checks(self, checks, engine: str = "native") -> List[bytes]:
+        """Digests for many SigCheck-shaped (kind, data) checks; one native
+        call by default."""
+        pairs = [(c.kind, c.data) for c in checks]
+        if native_bridge.use_native(engine):
+            return native_bridge.digest_checks(self._salt, pairs)
+        return [self._key(self._parts(k, d)) for k, d in pairs]
 
 
 class ScriptExecutionCache(_SaltedLRU):

@@ -1,20 +1,28 @@
-"""Build the port's CUDA sources into shared libraries and load them.
+"""Build the port's native sources into shared libraries and load them.
 
 Each `csrc/<name>.cu` is compiled by nvcc for sm_90a into a shared library
 with a plain C interface, bound with ctypes:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 
-The library lands in `build/torch_kernels/` at the root of the checkout,
-named by a hash of its source and flags, so a changed source rebuilds and an
-unchanged one loads at once. The compiler's output (`-Xptxas -v`: registers,
-spills) is kept beside the library. Sources build independently: two
-threads may compile two of them at once. Nothing here runs at import time.
+The host core `csrc/native/` (the name `nat`) is compiled by g++ with the
+flags of the reference's `native/Makefile`, its warnings left out:
+
+    g++ -O3 -std=c++17 -fPIC -shared csrc/native/nat.cpp
+
+A library lands in `build/torch_kernels/` at the root of the checkout,
+named by a hash of its sources and flags (all seven of the host core's, so
+a changed header rebuilds too), and an unchanged one loads at once. The
+compiler's output (`-Xptxas -v`: registers, spills) is kept beside the
+library. Sources build independently: two threads may compile two of them
+at once, and processes that want the same library take turns on a file
+lock. Nothing here runs at import time.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -24,7 +32,7 @@ import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict, List, Sequence, Tuple
 
 __all__ = ["Built", "build", "load"]
 
@@ -34,13 +42,17 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+HOST_CORE = "nat"
+HOST_CORE_SOURCES = ("nat.cpp", "secp.hpp", "sha256.hpp", "hash_extra.hpp",
+                     "interp.hpp", "eval.hpp", "block.hpp")
+GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 
 
 @dataclass(frozen=True)
 class Built:
     path: Path
     seconds: float  # compile time in this process (0.0 when reused)
-    log: str  # nvcc/ptxas output of the build that made `path`
+    log: str  # the compiler's output (nvcc: ptxas -v) for `path`
 
 
 _lock = threading.Lock()  # guards the three dicts
@@ -60,42 +72,64 @@ def _nvcc() -> str:
                        "with the CUDA toolkit")
 
 
+def _gxx() -> str:
+    found = shutil.which("g++")
+    if found:
+        return found
+    raise RuntimeError("g++ not found: the native host core builds with g++")
+
+
+def _recipe(name: str) -> Tuple[Callable[[], str], Sequence[str], List[Path]]:
+    """(compiler lookup, flags, sources: the compiled one first)."""
+    if name == HOST_CORE:
+        return _gxx, GXX_FLAGS, [CSRC / "native" / s for s in HOST_CORE_SOURCES]
+    return _nvcc, NVCC_FLAGS, [CSRC / f"{name}.cu"]
+
+
 def build(name: str) -> Built:
-    """Compile `csrc/<name>.cu` unless a library of the same source hash is
-    already in the build directory."""
+    """Compile `csrc/<name>.cu` (or the host core, `nat`) unless a library
+    of the same source hash is already in the build directory."""
     with _lock:
         name_lock = _name_locks.setdefault(name, threading.Lock())
     with name_lock:
         if name in _built:
             return _built[name]
-        src = CSRC / f"{name}.cu"
+        find_compiler, flags, srcs = _recipe(name)
         digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+            b"".join(p.read_bytes() for p in srcs) + " ".join(flags).encode()
         ).hexdigest()[:16]
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         out = BUILD_DIR / f"{name}-{digest}.so"
         log_path = out.with_suffix(".log")
         seconds = 0.0
-        if not out.exists():
-            t0 = time.perf_counter()
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            try:
-                proc = subprocess.run(
-                    [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
-                    capture_output=True, text=True,
-                )
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed on {src} (rc={proc.returncode}):\n"
-                        f"{proc.stdout}\n{proc.stderr}"
-                    )
-                log_path.write_text(proc.stdout + proc.stderr)
-                os.replace(tmp, out)
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
-            seconds = time.perf_counter() - t0
+        with open(BUILD_DIR / f"{name}.lock", "w") as lock_file:
+            fcntl.flock(lock_file, fcntl.LOCK_EX)  # released when closed
+            if not out.exists():
+                t0 = time.perf_counter()
+                compiler = find_compiler()
+                fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+                os.close(fd)
+                try:
+                    try:
+                        proc = subprocess.run(
+                            [compiler, *flags, "-o", tmp, str(srcs[0])],
+                            capture_output=True, text=True,
+                        )
+                    except OSError as e:
+                        raise RuntimeError(
+                            f"{compiler} could not run on {srcs[0]}: {e}"
+                        ) from e
+                    if proc.returncode != 0:
+                        raise RuntimeError(
+                            f"{compiler} failed on {srcs[0]} "
+                            f"(rc={proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+                        )
+                    log_path.write_text(proc.stdout + proc.stderr)
+                    os.replace(tmp, out)
+                finally:
+                    if os.path.exists(tmp):
+                        os.unlink(tmp)
+                seconds = time.perf_counter() - t0
         log = log_path.read_text() if log_path.exists() else ""
         built = Built(out, seconds, log)
         with _lock:
@@ -104,7 +138,8 @@ def build(name: str) -> Built:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu`, built at first use."""
+    """The loaded library of `csrc/<name>.cu` (or of the host core, `nat`),
+    built at first use."""
     built = build(name)
     with _lock:
         if name not in _libs:

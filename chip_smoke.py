@@ -6,17 +6,24 @@
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. The card: nvidia-smi name and power limit, torch and CUDA versions.
-2. Build every kernel from `bitcoinconsensus_tpu_torch/csrc` with nvcc, one
-   process per source, all started together; print each build time and the
-   ptxas registers and spills.
+2. Build every kernel from `bitcoinconsensus_tpu_torch/csrc` with nvcc and
+   the native host core (`csrc/native/`) with g++, one process per source,
+   all started together; print each build time and the ptxas registers and
+   spills.
 3. Main path: 10,000 seeded inputs in the replay mix (55% p2wpkh, 20% p2tr,
    15% p2pkh, 10% p2wsh 2-of-3; about 1% carry a corrupted signature) go
-   through one `verify_batch` on cuda:0. Every clean input must be accepted,
+   through one `verify_batch` on cuda:0 on the native host engine
+   (`[main_path] engine=native`), then through another on the Python
+   engine with fresh caches (`[main_path_python]`), whose verdicts must
+   equal the first's item for item. Every clean input must be accepted,
    every corrupted one rejected with ERR_SCRIPT and the ScriptError of the
-   exact per-input `api` path, and 64 sampled clean inputs must match that
-   path bit for bit. The kernel's launch count is read around this call alone.
-4. Kernel against its plain version on the card: the first 8,192 lanes of
-   that batch, a few hundred perturbed and one crafted collision lane; `ok`
+   exact per-input `api` path on its Python engine, and 64 sampled clean
+   inputs must match that path bit for bit. The kernel's launch count is
+   read around each call alone, and each must launch it.
+4. Lane packing: the native core's packed lanes of the first 8,192 checks
+   byte-equal to the Python packers', pad lanes included (`[lane_pack]`,
+   both host times). Kernel against its plain version on the card: those
+   lanes, a few hundred perturbed and one crafted collision lane; `ok`
    and `needs_host` must be bit-identical. Times by CUDA events; the
    operation bound counts the schedule's field squares and multiplies on
    these inputs. Every launch takes the contract's dynamic shared bytes,
@@ -378,7 +385,7 @@ def main() -> int:
         print("FAIL: no CUDA device", file=sys.stderr)
         return 2
     port = _import_port()
-    from bitcoinconsensus_tpu_torch import api
+    from bitcoinconsensus_tpu_torch import api, native_bridge
     from bitcoinconsensus_tpu_torch.crypto.torch_backend import TorchSecpVerifier
     from bitcoinconsensus_tpu_torch.models.batch import verify_batch
     from bitcoinconsensus_tpu_torch.models.sigcache import ScriptExecutionCache, SigCache
@@ -405,11 +412,12 @@ def main() -> int:
     if not rehearse:
         from concurrent.futures import ThreadPoolExecutor
 
-        sources = ("verify_tiles", "toy_kernels")
+        sources = ("verify_tiles", "toy_kernels", _build.HOST_CORE)
         with ThreadPoolExecutor(len(sources)) as pool:
             builds = list(pool.map(_build.build, sources))
         for name, built in zip(sources, builds):
-            _line("build", kernel=name, seconds=f"{built.seconds:.2f}",
+            what = dict(name=name) if name == _build.HOST_CORE else dict(kernel=name)
+            _line("build", **what, seconds=f"{built.seconds:.2f}",
                   library=os.path.relpath(built.path, HERE))
             for ln in built.log.splitlines():
                 if re.search(r"registers|spill|stack frame", ln):
@@ -433,31 +441,64 @@ def main() -> int:
     if not any(corrupted):
         _fail("the data holds no corrupted input")
 
-    verifier = TorchSecpVerifier(device=device)
-    sent = []  # the checks the verifier dispatched, in order
-    verify_checks = verifier.verify_checks
+    def drive(engine):
+        """One `verify_batch` over `items` on `engine` with fresh caches:
+        (results, launches, the verifier, the checks it dispatched, total s).
+        The launch count is set to 0 just before the call, read just after."""
+        verifier = TorchSecpVerifier(device=device, engine=engine)
+        sent = []  # the checks the verifier dispatched, in order
+        verify_checks = verifier.verify_checks
 
-    def recording(checks):
-        sent.extend(checks)
-        return verify_checks(checks)
+        def recording(checks):
+            sent.extend(checks)
+            return verify_checks(checks)
 
-    verifier.verify_checks = recording
-    VT.verify_tiles.launches = 0
-    sync()
-    t0 = time.perf_counter()
-    results = verify_batch(items, verifier=verifier, sig_cache=SigCache(),
-                           script_cache=ScriptExecutionCache())
-    sync()
-    t_total = time.perf_counter() - t0
-    launches = VT.verify_tiles.launches
-    st = verifier.stats
-    if not rehearse and launches == 0:
-        _fail("the main path never launched the verify_tiles kernel")
+        verifier.verify_checks = recording
+        sync()
+        VT.verify_tiles.launches = 0
+        t0 = time.perf_counter()
+        results = verify_batch(items, verifier=verifier, sig_cache=SigCache(),
+                               script_cache=ScriptExecutionCache(), engine=engine)
+        sync()
+        t_total = time.perf_counter() - t0
+        launches = VT.verify_tiles.launches
+        if not rehearse and launches == 0:
+            _fail(f"the {engine} main path never launched the verify_tiles kernel")
+        return results, launches, verifier, sent, t_total
+
+    def split(phase, engine, results, launches, verifier, t_total):
+        st = verifier.stats
+        prep_interp = t_total - st["lane_prep_s"] - st["device_wait_s"] - st["fixup_s"]
+        _line(phase, engine=engine, inputs=len(results), checks=int(st["lanes"]),
+              dispatches=int(st["dispatches"]), kernel_launches=launches,
+              fixups=int(st["fixups"]), total_s=f"{t_total:.3f}",
+              prepare_interpret_s=f"{prep_interp:.3f}",
+              lane_prep_s=f"{st['lane_prep_s']:.3f}",
+              device_wait_s=f"{st['device_wait_s']:.3f}",
+              kernel_ms=f"{st['kernel_ms']:.3f}", fixup_s=f"{st['fixup_s']:.4f}",
+              inputs_per_s=f"{len(results) / t_total:.1f}",
+              checks_per_s=f"{st['lanes'] / t_total:.1f}")
+
+    def verdicts(results):
+        return [(r.ok, r.error, r.script_error) for r in results]
+
+    results, launches, verifier, sent, t_total = drive("native")
+    split("main_path", "native", results, launches, verifier, t_total)
+    py_run = drive("python")
+    split("main_path_python", "python", py_run[0], *py_run[1:3], py_run[4])
+    n_engine_diff = sum(a != b for a, b in zip(verdicts(results), verdicts(py_run[0])))
+    _line("engines", inputs=len(items), tolerance=0, verdicts_differing=n_engine_diff,
+          native_launches=launches, python_launches=py_run[1])
+    if n_engine_diff or len(py_run[0]) != len(results):
+        _fail("the native and Python engines' verdicts differ")
 
     def exact(item):
+        """The per-input `api` on its Python engine: a spec independent of
+        the native core under test."""
         try:
             api.verify_with_spent_outputs(item.spending_tx, item.input_index,
-                                          item.spent_outputs, item.flags)
+                                          item.spent_outputs, item.flags,
+                                          engine="python")
             return (True, api.Error.ERR_OK, port.ScriptError.OK)
         except api.ConsensusError as e:
             return (False, e.code, e.script_error)
@@ -478,26 +519,32 @@ def main() -> int:
         (results[i].ok, results[i].error, results[i].script_error) != exact(items[i])
         for i in sample
     )
-    prep_interp = t_total - st["lane_prep_s"] - st["device_wait_s"] - st["fixup_s"]
-    _line("main_path", inputs=len(items), checks=int(st["lanes"]),
-          dispatches=int(st["dispatches"]), kernel_launches=launches,
-          fixups=int(st["fixups"]), total_s=f"{t_total:.3f}",
-          prepare_interpret_s=f"{prep_interp:.3f}",
-          lane_prep_s=f"{st['lane_prep_s']:.3f}",
-          device_wait_s=f"{st['device_wait_s']:.3f}",
-          kernel_ms=f"{st['kernel_ms']:.3f}", fixup_s=f"{st['fixup_s']:.4f}",
-          inputs_per_s=f"{len(items) / t_total:.1f}",
-          checks_per_s=f"{st['lanes'] / t_total:.1f}")
     _line("main_path_check", corrupted=sum(corrupted),
           corrupted_mismatch=n_bad_ok, clean_rejected=n_clean_fail,
           sampled=len(sample), sampled_mismatch=n_sample_diff)
     if n_bad_ok or n_clean_fail or n_sample_diff:
         _fail("verify_batch verdicts disagree with the expected ones")
 
-    # -- 4. kernel against its plain version -------------------------------------
-    lanes = verifier._prep_lanes(sent[:n_lanes])
+    # -- 4. lane packing, and the kernel against its plain version ---------------
+    pack_checks = sent[:n_lanes]
+    t0 = time.perf_counter()
+    lanes = verifier._prep_lanes(pack_checks)
+    py_packed = verifier._pack_lanes(lanes)
+    py_pack_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nat_packed = native_bridge.prep_pack(pack_checks, verifier._pad(len(pack_checks)))
+    nat_pack_s = time.perf_counter() - t0
+    pack_diff = sum(
+        a.shape != b.shape or a.dtype != b.dtype or a.tobytes() != b.tobytes()
+        for a, b in zip(py_packed, nat_packed, strict=True))
+    _line("lane_pack", lanes=len(pack_checks), padded=len(nat_packed[0]),
+          arrays=len(nat_packed), arrays_differing=pack_diff,
+          native_s=f"{nat_pack_s:.4f}", python_s=f"{py_pack_s:.4f}")
+    if pack_diff:
+        _fail("the native core's packed lanes differ from the Python packers'")
+
     (f, wo, par, h2, n1, n2, val), idx = blockgen.perturbed_panel(
-        verifier, verifier._pack_lanes(lanes), n_lanes, rng)
+        verifier, py_packed, n_lanes, rng)
     dev = verifier.to_device((f, wo, par, h2, n1, n2, val))
 
     ok_k, nd_k = VT.verify_tiles(*dev)

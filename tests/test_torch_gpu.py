@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from bitcoinconsensus_tpu_torch import api
+from bitcoinconsensus_tpu_torch import api, native_bridge
 from bitcoinconsensus_tpu_torch.analysis import kernel_check as K
 from bitcoinconsensus_tpu_torch.crypto import secp_host as H
 from bitcoinconsensus_tpu_torch.crypto.torch_backend import SigCheck, TorchSecpVerifier
@@ -241,6 +241,43 @@ def test_verify_batch_on_cuda_matches_api():
         assert (r.ok, r.error) == want[:2] and r.ok == (not b)
         if not r.ok:
             assert r.script_error == want[2]
+
+
+@pytest.mark.gpu
+def test_verify_batch_engines_agree_on_cuda():
+    """The native and the Python host engine, each with its own verifier on
+    cuda:0 and fresh caches, give equal verdicts on ~500 mixed inputs; both
+    launch the kernel."""
+    _need_cuda()
+    items, bad = B.mixed_items(500, seed=21, corrupt_rate=0.05)
+    got = {}
+    for engine in ("native", "python"):
+        v = TorchSecpVerifier(engine=engine)
+        before = VT.verify_tiles.launches
+        got[engine] = [(r.ok, r.error, r.script_error) for r in verify_batch(
+            items, verifier=v, sig_cache=SigCache(),
+            script_cache=ScriptExecutionCache(), engine=engine)]
+        assert VT.verify_tiles.launches > before
+    assert got["native"] == got["python"]
+    assert [not g[0] for g in got["native"]] == bad
+
+
+@pytest.mark.gpu
+def test_native_packed_lanes_through_the_kernel():
+    """`prep_pack`'s lanes and `_pack_lanes`' lanes are byte-equal and give
+    the kernel's equal verdicts, pad lanes included."""
+    _need_cuda()
+    v = TorchSecpVerifier()
+    checks = _checks(300) + [_collision()]
+    size = v._pad(len(checks))
+    py = v._pack_lanes(v._prep_lanes(checks))
+    nat = native_bridge.prep_pack(checks, size)
+    for a, b in zip(py, nat, strict=True):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    ok_p, nd_p = VT.verify_tiles(*v.to_device(py))
+    ok_n, nd_n = VT.verify_tiles(*v.to_device(nat))
+    assert torch.equal(ok_p, ok_n) and torch.equal(nd_p, nd_n)
+    assert bool(ok_n[:300].all()) and bool(nd_n[300])
 
 
 @pytest.mark.gpu

@@ -58,6 +58,8 @@ def test_runs_with_jax_unavailable():
         bad = SigCheck("schnorr", (xpk, B.sign_schnorr(sk, msg)[:-1] + b"\\0", msg))
         out = TorchSecpVerifier(device="cpu").verify_checks([good, bad])
         assert out.tolist() == [True, False], out
+        from bitcoinconsensus_tpu_torch import native_bridge
+        assert native_bridge._lib is not None  # the lanes were packed natively
         assert not any(m == "bitcoinconsensus_tpu" or m.startswith("bitcoinconsensus_tpu.")
                        for m in sys.modules)
         print("ok")
