@@ -25,9 +25,10 @@ fixup is part of the kernel's contract.
 
 from __future__ import annotations
 
+import threading
 import time
 from collections import defaultdict
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,11 +37,13 @@ from .. import native_bridge
 from ..ops.limbs import P_INT
 from ..ops.curve import G_X
 from ..ops.verify_tiles import verify_tiles
+from ..utils.gcpause import gc_paused
 from ..utils.hashes import tagged_hash
+from ..utils.profiling import Phases
 from .glv import split_lambda
 from .secp_host import N, parse_der_lax
 
-__all__ = ["SigCheck", "TorchSecpVerifier"]
+__all__ = ["SigCheck", "TorchSecpVerifier", "default_verifier"]
 
 
 class SigCheck:
@@ -199,24 +202,59 @@ def _prep_tweak(lane: _Lane, tweaked32: bytes, parity: int, internal32: bytes,
     lane.valid = True
 
 
+class _Pending:
+    """One dispatched chunk, unsynchronised: the kernel's result tensors, the
+    CUDA event pair around its launch (None on the CPU), and the host
+    buffers its upload reads from. The handle holds them until
+    `sync_lanes`, so a pinned buffer is never reused while its copy may
+    still be reading it."""
+
+    __slots__ = ("ok", "needs", "events", "host", "settled")
+
+    def __init__(self, ok, needs, events, host):
+        self.ok = ok
+        self.needs = needs
+        self.events = events
+        self.host = host
+        self.settled = False
+
+
 class TorchSecpVerifier:
     """Batched verifier on one device. Large batches are split into
-    CHUNK-lane dispatches; each dispatch pads to the power-of-two ladder
-    of `_pad`, which keeps at least one pad lane in reserve.
+    `chunk`-lane dispatches; each dispatch pads to the power-of-two ladder
+    of `_pad` from `min_batch` up, which keeps at least one pad lane in
+    reserve. `pad_step` caps that ladder at the next multiple of the step
+    (a 5.6k-lane dispatch pads to 6,144 at step 2,048, not to 8,192), and
+    must be a positive multiple of 512 lanes.
 
     `device=None` means `cuda:0`; without CUDA the constructor raises, and a
     caller that wants the plain torch version passes `device="cpu"`.
     `engine="native"` (the default) packs lanes and runs the host fixup in
     the native core, which loads here or raises; `engine="python"` runs the
     Python packers and the `secp_host` oracle.
+
+    Two seams, each split into an asynchronous half and a settling half:
+    `verify_checks_begin` / `verify_checks_finish` take `SigCheck`s, and
+    `dispatch_lanes` / `sync_lanes` take lanes already packed (the index-mode
+    drivers pack them inside the native session). Nothing between a
+    dispatch and its settle synchronises with the device: the upload is a
+    non-blocking copy from pinned memory, the launch goes on the device's
+    current stream, and the results stay on the device until settled.
+    `in_flight` counts the dispatches not yet settled; `phases` times
+    `host_prep`, `dispatch` and `sync` (and the drivers' own phases).
     """
 
-    MIN_BATCH = 8
-    CHUNK = 1 << 13
-
-    def __init__(self, device=None, engine: str = "native"):
+    def __init__(self, device=None, engine: str = "native", min_batch: int = 8,
+                 chunk: int = 1 << 13, pad_step: Optional[int] = None):
+        if pad_step is not None and (pad_step <= 0 or pad_step % 512 != 0):
+            raise ValueError("pad_step must be a positive multiple of 512 lanes")
+        if min_batch < 1 or chunk < 2:
+            raise ValueError("min_batch must be >= 1 and chunk >= 2")
         self.native = native_bridge.use_native(engine)
         self.engine = engine
+        self._min_batch = min_batch
+        self._chunk = chunk
+        self._pad_step = pad_step
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -227,6 +265,8 @@ class TorchSecpVerifier:
             device = "cuda:0"
         self.device = torch.device(device)
         self.stats: Dict[str, float] = defaultdict(float)
+        self.phases = Phases()
+        self.in_flight = 0
         if self.device.type == "cuda":
             # Set-up, once per verifier: build or load the kernel, upload
             # the G table and load the module with one launch over pad
@@ -237,16 +277,32 @@ class TorchSecpVerifier:
     def _pad(self, n: int) -> int:
         # `n + 1`, not `n`: every padded shape reserves at least one pad lane
         # (room for a known-answer sentinel lane); chunked drivers slice at
-        # `lane_capacity` (= CHUNK - 1) so full chunks keep one shape.
-        size = self.MIN_BATCH
+        # `lane_capacity` (= chunk - 1) so full chunks keep one shape.
+        size = self._min_batch
         while size < n + 1:
             size *= 2
+        if self._pad_step is not None:
+            # The smaller of the ladder and the step rounding: a 5.6k-lane
+            # dispatch pads to 6,144 at step 2,048, while a 4-check round
+            # still pads to min_batch, not to a whole step.
+            step = self._pad_step
+            return min(size, max(self._min_batch, (n + step) // step * step))
         return size
+
+    def pad(self, n: int) -> int:
+        """The padded lane count of a dispatch of `n` lanes (the index-mode
+        drivers pack lanes natively and need the same shapes)."""
+        return self._pad(n)
+
+    @property
+    def chunk(self) -> int:
+        return self._chunk
 
     @property
     def lane_capacity(self) -> int:
-        """Real lanes per chunk dispatch: one short of CHUNK."""
-        return self.CHUNK - 1
+        """Real lanes per chunk dispatch: one short of `chunk`, so a full
+        chunk keeps its reserved pad lane without going up a pad rung."""
+        return self._chunk - 1
 
     def _prep_lanes(self, checks: Sequence[SigCheck]) -> List[_Lane]:
         lanes = [_Lane() for _ in checks]
@@ -298,50 +354,92 @@ class TorchSecpVerifier:
         return fields, want_odd, parity, has_t2, neg1, neg2, valid
 
     def to_device(self, args) -> Tuple[torch.Tensor, ...]:
-        """Packed numpy 7-tuple -> tensors on this verifier's device."""
+        """Packed numpy 7-tuple -> tensors on this verifier's device
+        (a synchronous copy)."""
         return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
                      for a in args)
 
+    def _launch(self, args, n: int) -> _Pending:
+        """Upload one packed 7-tuple and launch the kernel over it, with
+        nothing synchronised: on a card the arrays are copied into pinned
+        buffers and sent with non-blocking copies, and the kernel and its
+        events go on the device's current stream."""
+        host = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in args)
+        events = None
+        if self.device.type == "cuda":
+            host = tuple(t.pin_memory() for t in host)
+            dev = tuple(t.to(self.device, non_blocking=True) for t in host)
+            stream = torch.cuda.current_stream(self.device)
+            events = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            events[0].record(stream)
+            ok, needs = verify_tiles(*dev)
+            events[1].record(stream)
+        else:
+            ok, needs = verify_tiles(*host)
+        self.stats["lanes"] += n
+        self.stats["padded_lanes"] += int(host[0].shape[0])
+        self.stats["dispatches"] += 1
+        self.in_flight += 1
+        return _Pending(ok, needs, events, host)
+
+    def _settle(self, pending: _Pending, n: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Wait for one dispatch: (ok[:n], needs_host[:n]) as numpy bools."""
+        if pending.settled:
+            raise ValueError("this dispatch was already settled")
+        t0 = time.perf_counter()
+        both = torch.stack((pending.ok[:n], pending.needs[:n])).cpu().numpy()
+        self.stats["device_wait_s"] += time.perf_counter() - t0
+        if pending.events is not None:
+            self.stats["kernel_ms"] += pending.events[0].elapsed_time(pending.events[1])
+        pending.settled = True
+        pending.host = None
+        self.in_flight -= 1
+        return both[0], both[1]
+
     def verify_checks(self, checks: Sequence[SigCheck]) -> np.ndarray:
-        """Verify a mixed batch; returns a bool array aligned with `checks`.
-        Every chunk is dispatched before the first result is read.
+        """Verify a mixed batch; returns a bool array aligned with `checks`:
+        `verify_checks_begin` then `verify_checks_finish`, with the cyclic
+        collector paused.
 
         `self.stats` accumulates where the time went: host lane prep and
         packing (`lane_prep_s`), host time spent waiting for the results to
         reach the host (`device_wait_s`), device time of the
         kernel by CUDA events (`kernel_ms`, CUDA only), the host fixup
-        (`fixup_s`), and the lane, dispatch and fixup counts."""
-        out = np.zeros(len(checks), dtype=bool)
+        (`fixup_s`), and the lane, padded lane, dispatch and fixup counts
+        (`lanes`, `padded_lanes`, `dispatches`, `fixups`), over both seams."""
+        if not checks:
+            return np.zeros(0, dtype=bool)
+        with gc_paused():
+            return self.verify_checks_finish(self.verify_checks_begin(checks))
+
+    def verify_checks_begin(self, checks: Sequence[SigCheck]):
+        """The asynchronous half of `verify_checks`: prep, pack and dispatch
+        every chunk; returns a handle for `verify_checks_finish` without
+        waiting for the device."""
         pending = []
         cap = self.lane_capacity
-        cuda = self.device.type == "cuda"
         for start in range(0, len(checks), cap):
             sub = checks[start : start + cap]
             t0 = time.perf_counter()
-            if self.native:
-                packed = native_bridge.prep_pack(sub, self._pad(len(sub)))
-            else:
-                packed = self._pack_lanes(self._prep_lanes(sub))
-            args = self.to_device(packed)
+            with self.phases("host_prep"):
+                if self.native:
+                    packed = native_bridge.prep_pack(sub, self._pad(len(sub)))
+                else:
+                    packed = self._pack_lanes(self._prep_lanes(sub))
             self.stats["lane_prep_s"] += time.perf_counter() - t0
-            events = None
-            if cuda:
-                events = (torch.cuda.Event(enable_timing=True),
-                          torch.cuda.Event(enable_timing=True))
-                events[0].record()
-            res = verify_tiles(*args)
-            if cuda:
-                events[1].record()
-            pending.append((start, len(sub), res, events))
-            self.stats["lanes"] += len(sub)
-            self.stats["dispatches"] += 1
-        for start, count, (ok, needs), events in pending:
-            t0 = time.perf_counter()
-            ok = ok[:count].cpu().numpy()
-            needs = needs[:count].cpu().numpy()
-            self.stats["device_wait_s"] += time.perf_counter() - t0
-            if events is not None:
-                self.stats["kernel_ms"] += events[0].elapsed_time(events[1])
+            with self.phases("dispatch"):
+                pending.append((start, len(sub), self._launch(packed, len(sub))))
+        return checks, pending
+
+    def verify_checks_finish(self, handle) -> np.ndarray:
+        """Settle a `verify_checks_begin` handle into the result array; lanes
+        the kernel flags `needs_host` are resolved exactly on the host."""
+        checks, pending = handle
+        out = np.zeros(len(checks), dtype=bool)
+        for start, count, pend in pending:
+            with self.phases("sync"):
+                ok, needs = self._settle(pend, count)
             out[start : start + count] = ok
             # Exceptional group-law lanes (crafted scalar collisions): the
             # fast device adds deferred them; resolve exactly on the host.
@@ -351,6 +449,20 @@ class TorchSecpVerifier:
                 self.stats["fixups"] += 1
             self.stats["fixup_s"] += time.perf_counter() - t0
         return out
+
+    def dispatch_lanes(self, args, n: int) -> _Pending:
+        """Dispatch one packed lane batch (the 7-tuple of `prep_pack` or
+        `NativeSession.uniq_lanes`, already padded, `n` real lanes); returns
+        a handle for `sync_lanes`, without waiting for the device."""
+        with self.phases("dispatch"):
+            return self._launch(args, n)
+
+    def sync_lanes(self, pending: _Pending, n: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Settle a `dispatch_lanes` handle: (ok[:n], needs_host[:n]). Lanes
+        flagged `needs_host` report ok False; the caller resolves them
+        exactly (`NativeSession.uniq_host_verify`)."""
+        with self.phases("sync"):
+            return self._settle(pending, n)
 
     def _host_check(self, chk: SigCheck) -> bool:
         """Exact host resolution of one check: the native core's, or the
@@ -369,3 +481,29 @@ class TorchSecpVerifier:
         if chk.kind == "schnorr":
             return secp_host.verify_schnorr(*chk.data)
         return secp_host.xonly_tweak_add_check(*chk.data)
+
+    # Single-check conveniences (tests and differential checks).
+    def verify_ecdsa(self, pubkey: bytes, sig_der: bytes, msg32: bytes) -> bool:
+        return bool(self.verify_checks([SigCheck("ecdsa", (pubkey, sig_der, msg32))])[0])
+
+    def verify_schnorr(self, pubkey32: bytes, sig64: bytes, msg32: bytes) -> bool:
+        return bool(self.verify_checks([SigCheck("schnorr", (pubkey32, sig64, msg32))])[0])
+
+    def tweak_add_check(self, tweaked32: bytes, parity: int, internal32: bytes,
+                        tweak32: bytes) -> bool:
+        return bool(self.verify_checks(
+            [SigCheck("tweak", (tweaked32, parity, internal32, tweak32))])[0])
+
+
+_default: Optional[TorchSecpVerifier] = None
+_default_lock = threading.Lock()
+
+
+def default_verifier() -> TorchSecpVerifier:
+    """The process-wide verifier on cuda:0 (native engine), built at first
+    use; raises where CUDA is not available."""
+    global _default
+    with _default_lock:
+        if _default is None:
+            _default = TorchSecpVerifier()
+        return _default

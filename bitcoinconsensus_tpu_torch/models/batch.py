@@ -24,15 +24,29 @@ default), which parses, precomputes, interprets every input of a phase in
 one C call and digests the cache keys in C++, or the Python engine
 (`core/`, `engine="python"`), the spec the native one is held to.
 
+On the native engine the three steps run in index mode (`IdxFixpoint`):
+the session keeps the deduplicated checks (`uniq`) in C++, and Python moves
+only int32 indices into that list and packed lanes out of it, through the
+verifier's asynchronous seam (`dispatch_lanes` / `sync_lanes`). The wire
+driver, which moves every check's bytes through Python as `SigCheck`s,
+stays as the executable spec: BITCOINCONSENSUS_TPU_IDX=0 selects it.
+`verify_batch_stream` runs index mode over many batches, beginning batch
+N+1 (parse, probe, interpretation, dispatch) before it settles batch N.
+`models/validate.connect_block` drives the same fixpoint for a block.
+
 Results are bit-identical to the per-input `api` entry points, `Error` and
-`ScriptError` included, on either engine. A device fault raises; it is not
-retried on the host.
+`ScriptError` included, on either engine and either driver. A device fault
+raises; it is not retried on the host.
 """
 
 from __future__ import annotations
 
+import os
+import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 from .. import native_bridge
 from ..api import Error
@@ -42,7 +56,7 @@ from ..core.script_error import ScriptError
 from ..core.serialize import SerializationError
 from ..core.sighash import PrecomputedTxData
 from ..core.tx import Tx, TxOut
-from ..crypto.torch_backend import SigCheck, TorchSecpVerifier
+from ..crypto.torch_backend import SigCheck, TorchSecpVerifier, default_verifier
 from ..native_bridge import NativeSession, NativeTx
 from ..utils.gcpause import gc_paused
 from .sigcache import (
@@ -52,7 +66,15 @@ from .sigcache import (
     default_sig_cache,
 )
 
-__all__ = ["BatchItem", "BatchResult", "DeferringSignatureChecker", "verify_batch"]
+__all__ = [
+    "BatchItem",
+    "BatchResult",
+    "DeferringSignatureChecker",
+    "IdxFixpoint",
+    "run_idx_fixpoint",
+    "verify_batch",
+    "verify_batch_stream",
+]
 
 MAX_ROUNDS = 24  # > MAX_PUBKEYS_PER_MULTISIG cursor retries
 
@@ -320,19 +342,45 @@ def verify_batch(
         return _verify_batch(items, verifier, sig_cache, script_cache, engine)
 
 
-def _verify_batch(items, verifier, sig_cache, script_cache, engine):
-    native = native_bridge.use_native(engine)
+def _defaults(verifier, sig_cache, script_cache, engine: str, caller: str):
+    """The verifier and caches a driver runs with: the process-wide ones
+    where the caller passed none (a fresh verifier on the Python engine).
+    A verifier of the other engine is refused."""
     if verifier is None:
-        verifier = TorchSecpVerifier(engine=engine)
+        native = native_bridge.use_native(engine)
+        verifier = default_verifier() if native else TorchSecpVerifier(engine=engine)
     elif verifier.engine != engine:
-        raise ValueError(f"verify_batch(engine={engine!r}) was given a "
+        raise ValueError(f"{caller}(engine={engine!r}) was given a "
                          f"verifier of engine {verifier.engine!r}")
     if sig_cache is None:
         sig_cache = default_sig_cache()
     if script_cache is None:
         script_cache = default_script_cache()
+    return verifier, sig_cache, script_cache
+
+
+def _idx_mode_enabled() -> bool:
+    """Index mode unless BITCOINCONSENSUS_TPU_IDX is 0 or off (the wire
+    driver, kept as the executable spec)."""
+    return os.environ.get("BITCOINCONSENSUS_TPU_IDX", "") not in ("0", "off")
+
+
+def _idx_ready(nsess, preps) -> bool:
+    """Whether a prepared batch can run in index mode: a native session, and
+    every prep either resolved already or holding a native handle."""
+    return (nsess is not None and _idx_mode_enabled()
+            and all(p.result is not None or p.ntx is not None for p in preps))
+
+
+def _verify_batch(items, verifier, sig_cache, script_cache, engine):
+    native = native_bridge.use_native(engine)
+    verifier, sig_cache, script_cache = _defaults(
+        verifier, sig_cache, script_cache, engine, "verify_batch")
 
     nsess, preps, script_keys = _prepare_and_probe(items, script_cache, engine)
+    if _idx_ready(nsess, preps):
+        return _verify_batch_idx(items, preps, nsess, verifier, sig_cache,
+                                 script_cache, script_keys)
     known: Dict[Tuple, bool] = {}
 
     def interpret(idxs: Sequence[int]) -> List[Tuple[bool, ScriptError, int, List[SigCheck]]]:
@@ -481,3 +529,319 @@ def _verify_batch(items, verifier, sig_cache, script_cache, engine):
         else:
             out.append(BatchResult(False, Error.ERR_SCRIPT, err))
     return out
+
+
+# -- index mode ----------------------------------------------------------------------
+
+
+def _idx_threads() -> int:
+    """The interpretation fan-out of index mode (the C call shards its
+    inputs across threads and releases the GIL): BITCOINCONSENSUS_TPU_THREADS,
+    else the host's core count."""
+    env = os.environ.get("BITCOINCONSENSUS_TPU_THREADS", "")
+    if env:
+        return max(1, int(env))
+    return max(1, os.cpu_count() or 1)
+
+
+class _UniqState:
+    """One fixpoint's verdicts over its session's uniq list: `val[i]` is
+    entry i's (every entry resolves in the round that discovers it, so the
+    array is complete up to its length)."""
+
+    __slots__ = ("val",)
+
+    def __init__(self):
+        self.val = np.zeros(0, dtype=bool)
+
+
+def _accept_mask(state: _UniqState, rec_idx: np.ndarray, bounds, unk) -> np.ndarray:
+    """Which inputs' verdicts are exact after a resolve round: those with no
+    oracle misses (unk == 0), and those whose misses all resolved true (the
+    optimistic guess held), counted over the rec_idx slices with one
+    cumulative sum."""
+    unk = np.asarray(unk)
+    out = unk == 0
+    if len(rec_idx) and not out.all():
+        have = state.val[rec_idx].astype(np.int64)
+        b = np.asarray(bounds, dtype=np.int64)
+        cs = np.concatenate([np.zeros(1, np.int64), np.cumsum(have)])
+        out = out | ((cs[b[1:]] - cs[b[:-1]]) == (b[1:] - b[:-1]))
+    return out
+
+
+def _dispatch_uniq(nsess, verifier, sig_cache, state: _UniqState):
+    """The asynchronous half of a resolve round over the uniq entries this
+    round discovered: the salted sig-cache probe first (a hit certifies a
+    past success), then the misses' lanes packed in the session and
+    dispatched, one `dispatch_lanes` per chunk, nothing synchronised.
+    Every new entry resolves in its round, the speculative CHECKMULTISIG
+    pairings included: a misaligned multisig's re-interpretation needs them
+    known. Returns the round's record for `_settle_uniq`, or None when the
+    round discovered nothing."""
+    U = nsess.uniq_count()
+    lo = len(state.val)
+    if U == lo:
+        return None
+    grow = np.arange(lo, U, dtype=np.int32)
+    with verifier.phases("host_prep"):
+        raw = nsess.uniq_digests(sig_cache._salt, grow).tobytes()
+    keys = [raw[32 * j : 32 * j + 32] for j in range(U - lo)]
+    state.val = np.concatenate([state.val, np.zeros(U - lo, dtype=bool)])
+    if len(sig_cache) == 0:
+        miss = grow  # a cold cache: every probe misses
+    else:
+        hit = np.fromiter((sig_cache.contains_key(k) for k in keys), dtype=bool,
+                          count=U - lo)
+        state.val[grow[hit]] = True
+        miss = grow[~hit]
+    pending = []
+    cap = verifier.lane_capacity
+    for s in range(0, len(miss), cap):
+        sub = miss[s : s + cap]
+        t0 = time.perf_counter()
+        with verifier.phases("host_prep"):
+            lanes = nsess.uniq_lanes(sub, verifier.pad(len(sub)))
+        verifier.stats["lane_prep_s"] += time.perf_counter() - t0
+        pending.append((verifier.dispatch_lanes(lanes, len(sub)), sub))
+    return grow, keys, pending
+
+
+def _settle_uniq(nsess, verifier, sig_cache, state: _UniqState, round_rec) -> None:
+    """The settling half of a resolve round: each dispatch's verdicts,
+    with the lanes the kernel flags `needs_host` resolved exactly in the
+    session; successes go into the sig cache, and every verdict of the
+    round into the session's oracle."""
+    if round_rec is None:
+        return
+    grow, keys, pending = round_rec
+    lo = int(grow[0])
+    for pend, sub in pending:
+        okv, needs = verifier.sync_lanes(pend, len(sub))
+        okv = okv.copy()
+        fix = np.nonzero(needs)[0]
+        if len(fix):
+            t0 = time.perf_counter()
+            for t in fix:
+                okv[t] = nsess.uniq_host_verify(int(sub[t]))
+            verifier.stats["fixups"] += len(fix)
+            verifier.stats["fixup_s"] += time.perf_counter() - t0
+        state.val[sub] = okv
+        for t in np.nonzero(okv)[0]:  # success-only, like the reference
+            sig_cache.add_key(keys[int(sub[t]) - lo])
+    nsess.publish_uniq(grow, state.val[grow].astype(np.int32))
+
+
+class IdxFixpoint:
+    """The deferral fixpoint of index mode, shared by `verify_batch`,
+    `verify_batch_stream` and `models/validate._connect_block_native`, split
+    into an asynchronous `begin` and a settling `finish`.
+
+    `begin()` interprets the pending inputs (`run_idx(pos) -> (ok, err, unk,
+    rec_idx, bounds)`) and dispatches every uniq check they discovered,
+    leaving the lanes in flight. `finish()` settles them, accepts the inputs
+    whose verdicts are exact, and runs further rounds to the fixpoint;
+    inputs still pending after `max_rounds` go through `exact_fallback(idx)
+    -> (ok, err_code)`. A stream calls batch N+1's `begin()` between batch
+    N's `begin()` and `finish()`."""
+
+    def __init__(self, nsess, verifier: TorchSecpVerifier, sig_cache: SigCache,
+                 live: Sequence[int], run_idx, exact_fallback,
+                 max_rounds: int = 24):  # > MAX_PUBKEYS_PER_MULTISIG cursor retries
+        self.nsess = nsess
+        self.verifier = verifier
+        self.sig_cache = sig_cache
+        self.run_idx = run_idx
+        self.exact_fallback = exact_fallback
+        self.max_rounds = max_rounds
+        self.final: Dict[int, Tuple[bool, int]] = {}
+        self._state = _UniqState()
+        self._pending = list(live)
+        self._rounds = 0
+        self._in_flight = None  # (interpretation, the round's uniq record)
+
+    def begin(self) -> None:
+        """Start a round: interpret and dispatch, nothing synchronised."""
+        if self._in_flight is not None or not self._pending:
+            return
+        if self._rounds >= self.max_rounds:
+            return
+        self._rounds += 1
+        interp = self.run_idx(self._pending)
+        rec = _dispatch_uniq(self.nsess, self.verifier, self.sig_cache, self._state)
+        self._in_flight = (interp, rec)
+
+    def _settle_round(self) -> None:
+        interp, rec = self._in_flight
+        self._in_flight = None
+        _settle_uniq(self.nsess, self.verifier, self.sig_cache, self._state, rec)
+        ok, err, unk, rec_idx, bounds = interp
+        accept = _accept_mask(self._state, rec_idx, bounds, unk)
+        still: List[int] = []
+        for k, idx in enumerate(self._pending):
+            if accept[k]:
+                self.final[idx] = (bool(ok[k]), int(err[k]))
+            else:
+                still.append(idx)
+        self._pending = still
+
+    def abandon(self) -> None:
+        """Settle and discard the round in flight without running the
+        fixpoint (a stream closed early). Unlike the reference, which
+        swallows every settle error here, a device fault raises."""
+        if self._in_flight is not None:
+            _interp, rec = self._in_flight
+            self._in_flight = None
+            if rec is not None:
+                for pend, sub in rec[2]:
+                    self.verifier.sync_lanes(pend, len(sub))
+        self._pending = []
+
+    def finish(self) -> Dict[int, Tuple[bool, int]]:
+        """Settle the round in flight, then run rounds to the fixpoint."""
+        if self._in_flight is not None:
+            self._settle_round()
+        while self._pending and self._rounds < self.max_rounds:
+            self.begin()
+            self._settle_round()
+        for idx in self._pending:  # round cap: the exact host checker
+            self.final[idx] = self.exact_fallback(idx)
+        self._pending = []
+        return self.final
+
+
+def run_idx_fixpoint(nsess, verifier: TorchSecpVerifier, sig_cache: SigCache,
+                     live: Sequence[int], run_idx, exact_fallback,
+                     max_rounds: int = 24) -> Dict[int, Tuple[bool, int]]:
+    """The fixpoint run synchronously (`begin`, then `finish`)."""
+    run = IdxFixpoint(nsess, verifier, sig_cache, live, run_idx, exact_fallback,
+                      max_rounds=max_rounds)
+    run.begin()
+    return run.finish()
+
+
+def _idx_fixpoint_for(items: Sequence[BatchItem], preps: List[_Prepared], nsess,
+                      verifier: TorchSecpVerifier, sig_cache: SigCache
+                      ) -> Optional[IdxFixpoint]:
+    """The fixpoint of a prepared batch, or None where every input resolved
+    already (a transport error, or a script-cache hit)."""
+    live = [i for i, p in enumerate(preps) if p.result is None]
+    if not live:
+        return None
+    n_threads = _idx_threads()
+
+    def run_idx(pos: List[int]):
+        with verifier.phases("interpret"):
+            return nsess.verify_inputs_idx(
+                [preps[i].ntx for i in pos],
+                [items[i].input_index for i in pos],
+                [preps[i].amount for i in pos],
+                [preps[i].script_pubkey for i in pos],
+                [items[i].flags for i in pos],
+                n_threads=n_threads,
+            )
+
+    def exact_fallback(idx: int) -> Tuple[bool, int]:
+        ok, err_code, _ = nsess.verify_input(
+            preps[idx].ntx, items[idx].input_index, preps[idx].amount,
+            preps[idx].script_pubkey, items[idx].flags,
+            mode=NativeSession.MODE_EXACT,
+        )
+        return ok, err_code
+
+    return IdxFixpoint(nsess, verifier, sig_cache, live, run_idx, exact_fallback)
+
+
+def _assemble_idx_results(preps: List[_Prepared], final: Dict[int, Tuple[bool, int]],
+                          script_cache: ScriptExecutionCache,
+                          script_keys: List[Optional[bytes]]) -> List[BatchResult]:
+    out: List[BatchResult] = []
+    for idx, prep in enumerate(preps):
+        if prep.result is not None:
+            out.append(prep.result)
+            continue
+        ok, err = final[idx]
+        if ok:
+            if script_keys[idx] is not None:
+                script_cache.add_key(script_keys[idx])
+            out.append(BatchResult.success())
+        else:
+            out.append(BatchResult(False, Error.ERR_SCRIPT, ScriptError(err)))
+    return out
+
+
+def _verify_batch_idx(items, preps, nsess, verifier, sig_cache, script_cache,
+                      script_keys) -> List[BatchResult]:
+    """`verify_batch` in index mode: the wire driver's three steps with the
+    checks kept in the session, interpretation sharded across
+    `_idx_threads()` threads."""
+    run = _idx_fixpoint_for(items, preps, nsess, verifier, sig_cache)
+    final: Dict[int, Tuple[bool, int]] = {}
+    if run is not None:
+        run.begin()
+        final = run.finish()
+    return _assemble_idx_results(preps, final, script_cache, script_keys)
+
+
+def verify_batch_stream(
+    batches,
+    verifier: Optional[TorchSecpVerifier] = None,
+    sig_cache: Optional[SigCache] = None,
+    script_cache: Optional[ScriptExecutionCache] = None,
+    depth: int = 2,
+    engine: str = "native",
+):
+    """`verify_batch` over an iterable of item lists, pipelined.
+
+    Yields one result list per batch, in order, each equal to `verify_batch`
+    of that batch, with up to `depth` batches begun: batch N+1 is parsed,
+    probed, interpreted and dispatched while batch N's lanes are on the
+    card, and batch N is settled after. A batch that cannot run in index
+    mode (the Python engine, or BITCOINCONSENSUS_TPU_IDX=0) runs through a
+    synchronous `verify_batch` in its turn. Closing the generator early
+    settles every dispatch of the batches it had begun."""
+    verifier, sig_cache, script_cache = _defaults(
+        verifier, sig_cache, script_cache, engine, "verify_batch_stream")
+    depth = max(1, int(depth))
+    idx_mode = native_bridge.use_native(engine) and _idx_mode_enabled()
+    window: List[tuple] = []
+
+    def begin(items):
+        if idx_mode:
+            with gc_paused():
+                nsess, preps, script_keys = _prepare_and_probe(items, script_cache,
+                                                               engine)
+                if _idx_ready(nsess, preps):
+                    run = _idx_fixpoint_for(items, preps, nsess, verifier, sig_cache)
+                    if run is not None:
+                        run.begin()
+                    return ("idx", run, preps, script_keys)
+        return ("done", verify_batch(items, verifier, sig_cache, script_cache, engine))
+
+    def finish(handle):
+        if handle[0] == "done":
+            return handle[1]
+        _tag, run, preps, script_keys = handle
+        with gc_paused():
+            final = run.finish() if run is not None else {}
+            return _assemble_idx_results(preps, final, script_cache, script_keys)
+
+    try:
+        for items in batches:
+            window.append(begin(items))
+            while len(window) >= depth:
+                yield finish(window.pop(0))
+        while window:
+            yield finish(window.pop(0))
+    finally:
+        # A consumer that closes the stream early leaves begun batches with
+        # dispatches in flight: settle them, so none is left unsettled.
+        _abandon_stream_window(window)
+
+
+def _abandon_stream_window(window: List[tuple]) -> None:
+    """Settle and discard every begun, unfinished stream handle."""
+    while window:
+        handle = window.pop(0)
+        if handle[0] == "idx" and handle[1] is not None:
+            handle[1].abandon()

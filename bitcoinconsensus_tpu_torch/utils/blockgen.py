@@ -1,7 +1,9 @@
-"""Synthetic funded outputs and signed spends (tests and chip_smoke.py only).
+"""Synthetic funded outputs, signed spends and blocks (tests and
+chip_smoke.py only).
 
-A copy of the spend builders of `bitcoinconsensus_tpu/utils/blockgen.py`
-(`Wallet`, `FundedOutput`, `build_spend_tx`) and the script-type mix of
+A copy of the builders of `bitcoinconsensus_tpu/utils/blockgen.py`
+(`Wallet`, `FundedOutput`, `build_spend_tx`, `make_funded_view`,
+`build_block` with regtest-grade proof of work) and the script-type mix of
 `bitcoinconsensus_tpu/workloads/replay.py` (`DEFAULT_MIX`), plus
 `mixed_items`, which draws a seeded batch of inputs in that mix.
 
@@ -17,10 +19,19 @@ from __future__ import annotations
 
 import hashlib
 import random
-from typing import Optional, Sequence, Tuple
+import struct
+from typing import List, Optional, Sequence, Tuple
 
+from ..core.block import (
+    Block,
+    BlockHeader,
+    block_merkle_root,
+    block_witness_merkle_root,
+    check_proof_of_work,
+    witness_commitment_index,
+)
 from ..core.flags import VERIFY_ALL_EXTENDED
-from ..core.script import OP_CHECKMULTISIG, push_data
+from ..core.script import OP_CHECKMULTISIG, OP_RETURN, push_data
 from ..core.sighash import (
     SIGHASH_ALL,
     SIGHASH_DEFAULT,
@@ -30,19 +41,28 @@ from ..core.sighash import (
     bip341_sighash,
     legacy_sighash,
 )
-from ..core.tx import OutPoint, Tx, TxIn, TxOut
+from ..core.tx import COIN, OutPoint, Tx, TxIn, TxOut
 from ..crypto import secp_host as H
 from ..ops.gen_gtable import affine_table
-from .hashes import hash160, tagged_hash
+from .hashes import hash160, sha256d, tagged_hash
 
 __all__ = [
     "KINDS",
     "DEFAULT_MIX",
     "Wallet",
     "FundedOutput",
+    "make_funded_view",
     "build_spend_tx",
+    "build_block",
     "mixed_items",
+    "REGTEST_POW_LIMIT",
+    "REGTEST_BITS",
 ]
+
+# Regtest-grade proof of work, so that a block mines in a few nonce tries
+# (chainparams.cpp regtest powLimit and genesis nBits).
+REGTEST_POW_LIMIT = 0x7FFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFF
+REGTEST_BITS = 0x207FFFFF
 
 KINDS = ("p2pkh", "p2wpkh", "p2wsh_multisig", "p2tr")
 
@@ -228,6 +248,27 @@ class FundedOutput:
         self.amount = amount
 
 
+def make_funded_view(
+    n: int,
+    kinds: Sequence[str] = KINDS,
+    amount: int = COIN // 100,
+    height: int = 1,
+    seed: str = "fund",
+):
+    """(CoinsView, funded outputs): n outputs cycling through `kinds`."""
+    from ..models.validate import Coin, CoinsView
+
+    coins = CoinsView()
+    funded: List[FundedOutput] = []
+    for i in range(n):
+        kind = kinds[i % len(kinds)]
+        w = Wallet(f"{seed}/{i}", kind)
+        op = OutPoint(hashlib.sha256(f"{seed}/op/{i}".encode()).digest(), i & 0xFFFF)
+        coins.add(op, Coin(TxOut(amount, w.spk), height=height, coinbase=False))
+        funded.append(FundedOutput(op, w, amount))
+    return coins, funded
+
+
 def build_spend_tx(
     inputs: Sequence[FundedOutput],
     fee: int = 1000,
@@ -254,6 +295,57 @@ def build_spend_tx(
             tx, i, f.amount, txdata=txdata, corrupt=(i == corrupt_input)
         )
     return tx
+
+
+def _make_coinbase(height: int, reward: int, with_witness_commitment: bool) -> Tx:
+    """A coinbase paying `reward`: the BIP34 height push, and a BIP141
+    commitment placeholder that `build_block` fills in."""
+    script_sig = push_data(struct.pack("<I", height).rstrip(b"\x00") or b"\x00") + b"\x00"
+    vout = [TxOut(reward, b"\x51")]
+    if with_witness_commitment:
+        vout.append(TxOut(0, bytes([OP_RETURN, 0x24]) + b"\xaa\x21\xa9\xed" + b"\x00" * 32))
+    tx = Tx(
+        version=1,
+        vin=[TxIn(OutPoint(b"\x00" * 32, 0xFFFFFFFF), script_sig, 0xFFFFFFFF)],
+        vout=vout,
+        locktime=0,
+    )
+    if with_witness_commitment:
+        tx.vin[0].witness = [b"\x00" * 32]
+    return tx
+
+
+def build_block(
+    txs: List[Tx],
+    height: int,
+    prev_hash: bytes = b"\x00" * 32,
+    fees: int = 0,
+    time: int = 1_600_000_000,
+    bits: int = REGTEST_BITS,
+    witness_commitment: bool = True,
+) -> Block:
+    """A structurally valid block over `txs`, mined: the coinbase pays the
+    subsidy at `height` plus `fees`, the witness commitment is computed over
+    the final txs, and the nonce is ground until the header meets the
+    regtest target."""
+    from ..models.validate import get_block_subsidy
+
+    coinbase = _make_coinbase(height, get_block_subsidy(height) + fees,
+                              witness_commitment)
+    header = BlockHeader(version=0x20000000, prev_hash=prev_hash,
+                         merkle_root=b"\x00" * 32, time=time, bits=bits, nonce=0)
+    block = Block(header, [coinbase] + txs)
+    if witness_commitment:
+        root, _ = block_witness_merkle_root(block)
+        commit = sha256d(root + coinbase.vin[0].witness[0])
+        idx = witness_commitment_index(block)
+        spk = coinbase.vout[idx].script_pubkey
+        coinbase.vout[idx] = TxOut(0, spk[:6] + commit)
+        coinbase.invalidate_caches()  # changed after its ids were cached
+    header.merkle_root = block_merkle_root(block)[0]
+    while not check_proof_of_work(block.hash, bits, REGTEST_POW_LIMIT):
+        header.nonce += 1
+    return block
 
 
 def _pick_kind(rng: random.Random, mix) -> str:

@@ -1,0 +1,59 @@
+"""Per-phase wall-clock timers.
+
+A port of `Phases` from `bitcoinconsensus_tpu/utils/profiling.py` without
+its telemetry spans (the port has no `obs/` yet): each phase accumulates
+its seconds and calls on the instance, under a lock, because the batch
+drivers' phases may be entered from more than one thread.
+
+    ph = Phases()
+    with ph("host_prep"):
+        ...
+    ph.report()  # {"host_prep": {"secs": ..., "calls": ...}, ...}
+
+`Phases(enabled=False)` turns them into no-ops.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from contextlib import contextmanager
+from typing import Dict
+
+__all__ = ["Phases"]
+
+
+class Phases:
+    def __init__(self, enabled: bool = True):
+        self.enabled = enabled
+        self._lock = threading.Lock()
+        self._secs: Dict[str, float] = {}
+        self._calls: Dict[str, int] = {}
+
+    @contextmanager
+    def __call__(self, name: str):
+        if not self.enabled:
+            yield
+            return
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            with self._lock:
+                self._secs[name] = self._secs.get(name, 0.0) + dt
+                self._calls[name] = self._calls.get(name, 0) + 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self._secs.clear()
+            self._calls.clear()
+
+    def report(self) -> Dict[str, Dict[str, float]]:
+        with self._lock:
+            return {k: {"secs": self._secs[k], "calls": self._calls[k]}
+                    for k in self._secs}
+
+    def total(self) -> float:
+        with self._lock:
+            return sum(self._secs.values())

@@ -12,14 +12,37 @@ Phases, each printing its own lines; any failure exits non-zero:
    spills.
 3. Main path: 10,000 seeded inputs in the replay mix (55% p2wpkh, 20% p2tr,
    15% p2pkh, 10% p2wsh 2-of-3; about 1% carry a corrupted signature) go
-   through one `verify_batch` on cuda:0 on the native host engine
-   (`[main_path] engine=native`), then through another on the Python
-   engine with fresh caches (`[main_path_python]`), whose verdicts must
-   equal the first's item for item. Every clean input must be accepted,
-   every corrupted one rejected with ERR_SCRIPT and the ScriptError of the
-   exact per-input `api` path on its Python engine, and 64 sampled clean
-   inputs must match that path bit for bit. The kernel's launch count is
-   read around each call alone, and each must launch it.
+   through one `verify_batch` on cuda:0 on the native host engine in index
+   mode (`[main_path]`), through one in the wire driver
+   (`[main_path_wire]`, BITCOINCONSENSUS_TPU_IDX=0) and through one on the
+   Python engine (`[main_path_python]`), each with fresh caches; all three
+   must give the same verdicts item for item (`[engines]`); the two native
+   drivers then run again in turns, wire, index, index, wire
+   (`[drivers_turns]`), since a process's first call pays one-time costs.
+   Every clean
+   input must be accepted, every corrupted one rejected with ERR_SCRIPT and
+   the ScriptError of the exact per-input `api` path on its Python engine,
+   and 64 sampled clean inputs must match that path bit for bit. Then the
+   same inputs in 5 batches of 2,000 through `verify_batch_stream` at depth
+   2, in 3 rounds in turns with one `verify_batch` per batch (`[stream]`:
+   every time, every batch's verdicts equal), the kernel held to its plain
+   version on every lane of the stream's first dispatch
+   (`[stream_compare]`), and a stream closed after its first yield, which
+   must leave no dispatch unsettled (`[stream_close]`). Then the block of
+   BASELINE.json config 5 (3,200 inputs in 400 txs, 4,000 signatures, as
+   scripts/bench_configs.py builds it) through `connect_block` on a
+   NativeCoinsView, 5 times with fresh caches (`[block]`: best and median
+   ms, the phase split, launches, padded lanes, kernel ms in the pipeline
+   and warmed on the same lanes), held to a plain CoinsView on the Python
+   engine; the kernel held to its plain version on every lane the block
+   dispatched (`[block_compare]`); those lanes, and the index session's,
+   byte-equal to `prep_pack` of the checks the wire protocol records for
+   the block, and the session's cache keys equal to the sig cache's
+   (`[block_lanes]`); 64 sampled inputs' results equal to the per-input
+   `api` on its Python engine (`[block_exact]`); and the block with one
+   corrupted signature, rejected alike by both, the bad tx's inputs as the
+   per-input `api` says (`[block_reject]`). Each path's kernel launches are
+   read around it alone, and each must launch the kernel.
 4. Lane packing: the native core's packed lanes of the first 8,192 checks
    byte-equal to the Python packers', pad lanes included (`[lane_pack]`,
    both host times). Kernel against its plain version on the card: those
@@ -47,7 +70,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    host cost included; the median of 7 rounds of 200 calls, and where one
    PyTorch call computes the same function, the two are timed in turns) and by
    torch.profiler on the card alone (`device_ms`).
-7. A `kernels` JSON line, the card line, and the result line.
+7. A `kernels` JSON line (with each path's launches of `verify_tiles`), the
+   card line, and the result line.
 
 The script needs the repository beside it; with no CUDA device, or alone in
 a directory, it exits non-zero without a result. `--rehearse-cpu` runs the
@@ -371,6 +395,353 @@ def _signed_mags(v: int):
     return out
 
 
+def _verdicts(results):
+    return [(r.ok, r.error, r.script_error) for r in results]
+
+
+def _api_exact(raw: bytes, index: int, spent, flags: int):
+    """One input through the per-input `api` on its Python engine: a spec
+    independent of the native core and the kernel under test."""
+    from bitcoinconsensus_tpu_torch import ScriptError, api
+
+    try:
+        api.verify_with_spent_outputs(raw, index, spent, flags, engine="python")
+        return (True, api.Error.ERR_OK, ScriptError.OK)
+    except api.ConsensusError as e:
+        return (False, e.code, e.script_error)
+
+
+def _hold_to_plain(VT, verifier, lanes, sync):
+    """The kernel and its plain version on the same packed lanes, every lane
+    on the card: (max_abs_err over `ok` and `needs_host`, kernel accepts)."""
+    dev = verifier.to_device(lanes)
+    ok_k, nd_k = VT.verify_tiles(*dev)
+    ok_r, nd_r = VT.verify_tiles_reference(*dev)
+    sync()
+    err = max(int((ok_k.int() - ok_r.int()).abs().max()),
+              int((nd_k.int() - nd_r.int()).abs().max()))
+    return err, int(ok_k.sum())
+
+
+def _same_arrays(a, b) -> bool:
+    return all(x.shape == y.shape and x.dtype == y.dtype and x.tobytes() == y.tobytes()
+               for x, y in zip(a, b, strict=True))
+
+
+def _dispatch_recorder(verifier):
+    """Wrap `verifier.dispatch_lanes` so that it keeps each dispatch's packed
+    lanes and lane count in the returned list while `on[0]` holds."""
+    seen, on = [], [True]
+    dispatch = verifier.dispatch_lanes
+
+    def keep(args, n):
+        if on[0]:
+            seen.append((args, n))
+        return dispatch(args, n)
+
+    verifier.dispatch_lanes = keep
+    return seen, on
+
+
+def _stream(items, results, device, sync, launches_around, rehearse) -> None:
+    """`verify_batch_stream` over the main path's inputs in 5 batches at
+    depth 2, with fresh caches, in turns with the same batches through one
+    `verify_batch` each (`[stream]`): every yielded list must equal its
+    batch's, and the main path's verdicts. The kernel is held to its plain
+    version on every lane of the stream's first dispatch
+    (`[stream_compare]`). Then a stream closed after its first yield must
+    leave no dispatch unsettled (`[stream_close]`)."""
+    import torch
+
+    from bitcoinconsensus_tpu_torch.crypto.torch_backend import TorchSecpVerifier
+    from bitcoinconsensus_tpu_torch.models.batch import verify_batch, verify_batch_stream
+    from bitcoinconsensus_tpu_torch.models.sigcache import ScriptExecutionCache, SigCache
+    from bitcoinconsensus_tpu_torch.ops import verify_tiles as VT
+
+    n_b = 5
+    size = len(items) // n_b
+    batches = [items[k * size:(k + 1) * size] for k in range(n_b)]
+    want = [_verdicts(results[k * size:(k + 1) * size]) for k in range(n_b)]
+    verifier = TorchSecpVerifier(device=device)
+    seen, recording = _dispatch_recorder(verifier)  # the first streamed run's
+
+    def sequential():
+        sig, script = SigCache(), ScriptExecutionCache()
+        out, per = [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            out.append(verify_batch(b, verifier=verifier, sig_cache=sig,
+                                    script_cache=script))
+            sync()
+            per.append(time.perf_counter() - t0)
+        return out, per
+
+    def streamed():
+        sig, script = SigCache(), ScriptExecutionCache()
+        t0 = time.perf_counter()
+        out = list(verify_batch_stream(iter(batches), verifier=verifier, sig_cache=sig,
+                                       script_cache=script, depth=2))
+        sync()
+        return out, time.perf_counter() - t0
+
+    # Rounds in turns (sequential, stream, stream, sequential, ...); the
+    # stream's first run has its launches counted around it alone.
+    seq_runs, st_runs, outs = [], [], []
+    st_dispatches = 0
+    for r in range(2 if rehearse else 3):
+        for kind in (("seq", "stream") if r % 2 == 0 else ("stream", "seq")):
+            if kind == "seq":
+                out, per = sequential()
+                seq_runs.append(sum(per))
+            elif not st_runs:
+                verifier.stats.clear()
+                out, dt = launches_around("stream", streamed)
+                recording[0] = False
+                st_dispatches = int(verifier.stats["dispatches"])
+                st_runs.append(dt)
+            else:
+                out, dt = streamed()
+                st_runs.append(dt)
+            outs.append(out)
+    bad = sum(_verdicts(o) != w for out in outs for o, w in zip(out, want, strict=True))
+    med = lambda v: sorted(v)[len(v) // 2]  # noqa: E731
+    _line("stream", batches=n_b, batch_inputs=size, depth=2, tolerance=0,
+          batches_differing=bad, stream_s=json.dumps([round(t, 4) for t in st_runs]),
+          sequential_sum_s=json.dumps([round(t, 4) for t in seq_runs]),
+          sequential_per_batch_s=json.dumps([round(t, 4) for t in per]),
+          stream_over_sequential_median=f"{med(st_runs) / med(seq_runs):.3f}",
+          kernel_launches=st_dispatches, in_flight=verifier.in_flight)
+    if bad or any(len(out) != n_b for out in outs):
+        _fail("verify_batch_stream's results differ from verify_batch per batch")
+    lanes, n_real = seen[0]
+    err, accepted = _hold_to_plain(VT, verifier, lanes, sync)
+    _line("stream_compare", dispatch=1, of=len(seen), lanes=n_real, padded=len(lanes[0]),
+          tolerance=0, max_abs_err=err, kernel_ok=accepted)
+    if err:
+        _fail("kernel and plain version disagree on the stream's lanes")
+
+    gen = verify_batch_stream(iter(batches), verifier=verifier, sig_cache=SigCache(),
+                              script_cache=ScriptExecutionCache(), depth=2)
+    first = next(gen)
+    begun = verifier.in_flight
+    gen.close()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)  # raises on a device fault
+    again = verify_batch(batches[0], verifier=verifier, sig_cache=SigCache(),
+                         script_cache=ScriptExecutionCache())
+    _line("stream_close", in_flight_at_close=begun, in_flight_after=verifier.in_flight,
+          first_equal=_verdicts(first) == want[0], after_equal=_verdicts(again) == want[0])
+    if begun < 1 or verifier.in_flight != 0 or _verdicts(first) != want[0] \
+            or _verdicts(again) != want[0]:
+        _fail("a stream closed early left a dispatch unsettled or changed a verdict")
+
+
+def _block(device, sync, launches_around, rehearse) -> None:
+    """BASELINE.json config 5 as scripts/bench_configs.py builds it: 3,200
+    inputs in 400 txs of 8, kinds cycling p2wpkh, p2tr, p2wpkh, p2wsh 2-of-3
+    (4,000 signatures), height 710,000, regtest proof of work, the verifier
+    at min_batch 512, chunk 8,192, pad_step 2,048. `connect_block` on a
+    fresh NativeCoinsView clone with fresh caches, 5 times (`[block]`), then
+    on a plain CoinsView on the Python engine, which must give the same
+    result and view size. The block's dispatched lanes are then held to
+    independent specs: every lane's kernel result to the plain version
+    (`[block_compare]`), the lanes themselves to `prep_pack` of the checks
+    the wire protocol records for the block, in the index session's uniq
+    order, with the session's cache keys (`[block_lanes]`), and a sample of
+    per-input results to the per-input `api` on its Python engine
+    (`[block_exact]`). `[block_reject]`: the block with one corrupted
+    signature, rejected alike on both, the views unchanged, the bad tx's
+    inputs as the per-input `api` says."""
+    import numpy as np
+
+    from bitcoinconsensus_tpu_torch import native_bridge as NB
+    from bitcoinconsensus_tpu_torch.core.flags import height_to_flags
+    from bitcoinconsensus_tpu_torch.core.tx import OutPoint, TxOut
+    from bitcoinconsensus_tpu_torch.crypto.torch_backend import SigCheck, TorchSecpVerifier
+    from bitcoinconsensus_tpu_torch.models.batch import _idx_threads
+    from bitcoinconsensus_tpu_torch.models.sigcache import ScriptExecutionCache, SigCache
+    from bitcoinconsensus_tpu_torch.models.validate import Coin, CoinsView, connect_block
+    from bitcoinconsensus_tpu_torch.native_bridge import NativeCoinsView
+    from bitcoinconsensus_tpu_torch.ops import verify_tiles as VT
+    from bitcoinconsensus_tpu_torch.utils import blockgen as B
+
+    height = 710_000
+    kinds = ("p2wpkh", "p2tr", "p2wpkh", "p2wsh_multisig")
+    n_in = 40 if rehearse else 4000 * 4 // 5  # 5 signatures per 4 inputs
+    t0 = time.perf_counter()
+    coins, funded = B.make_funded_view(n_in, kinds=kinds, seed="bench-block")
+    txs = [B.build_spend_tx(funded[i:i + 8], fee=800) for i in range(0, n_in - 7, 8)]
+    block = B.build_block(txs, height, fees=800 * len(txs))
+    k = len(txs) // 2  # the tx whose second input gets a corrupted signature
+    bad_txs = txs[:k] + [B.build_spend_tx(funded[8 * k:8 * k + 8], fee=800,
+                                          corrupt_input=1)] + txs[k + 1:]
+    bad_block = B.build_block(bad_txs, height, fees=800 * len(txs))
+    entries = [(t, n, c.out.value, c.height, c.coinbase, c.out.script_pubkey)
+               for (t, n), c in coins._map.items()]
+    nview0 = NativeCoinsView()
+    nview0.add_coins_batch(entries)
+
+    def plain_view():
+        view = CoinsView()
+        for t, n, value, h, cb, spk in entries:
+            view.add(OutPoint(t, n), Coin(TxOut(value, spk), h, cb))
+        return view
+
+    _line("block_data", txs=len(txs), inputs=n_in, signatures=n_in * 5 // 4,
+          block_bytes=len(block.serialize()), seconds=f"{time.perf_counter() - t0:.3f}")
+
+    def tup(res):
+        return (res.ok, res.reason, res.fees, res.sigop_cost,
+                None if res.input_results is None else _verdicts(res.input_results))
+
+    verifier = TorchSecpVerifier(device=device, min_batch=512, chunk=8192, pad_step=2048)
+    py_verifier = TorchSecpVerifier(device=device, engine="python", min_batch=512,
+                                    chunk=8192, pad_step=2048)
+    iters = 2 if rehearse else 5
+    runs = []
+    seen, _on = _dispatch_recorder(verifier)  # the last run's dispatches
+
+    def connect_runs():
+        for _ in range(iters):
+            seen.clear()
+            view = nview0.clone()
+            sig, script = SigCache(), ScriptExecutionCache()
+            verifier.phases.reset()
+            verifier.stats.clear()
+            t0 = time.perf_counter()
+            res = connect_block(block, view, height, verifier=verifier,
+                                pow_limit=B.REGTEST_POW_LIMIT, sig_cache=sig,
+                                script_cache=script)
+            sync()
+            runs.append((time.perf_counter() - t0, res, view,
+                         {k: v["secs"] for k, v in verifier.phases.report().items()},
+                         dict(verifier.stats)))
+
+    launches_around("block", connect_runs)
+    times = sorted(r[0] for r in runs)
+    best = min(runs, key=lambda r: r[0])
+    dt, res, view, ph, st = best
+    names = ("block_check", "accounting", "probe", "interpret", "host_prep",
+             "dispatch", "sync", "apply")
+    split = {n: round(ph.get(n, 0.0) * 1e3, 4) for n in names}
+    split["residual"] = round(dt * 1e3 - sum(split.values()), 4)
+    # The same lanes again, the kernel warmed and launched back to back: an
+    # in-pipeline launch follows tens of ms of idle device.
+    warm_args = verifier.to_device(seen[-1][0])
+    warm_ms = _timed(lambda: VT.verify_tiles(*warm_args), 1 if rehearse else 20, device)
+    plain = plain_view()
+    t0 = time.perf_counter()
+    res_py = launches_around("block_python", lambda: connect_block(
+        block, plain, height, verifier=py_verifier, pow_limit=B.REGTEST_POW_LIMIT,
+        sig_cache=SigCache(), script_cache=ScriptExecutionCache(), engine="python"))
+    py_s = time.perf_counter() - t0
+    same = all(tup(r[1]) == tup(res) for r in runs) and tup(res_py) == tup(res)
+    _line("block", inputs=n_in, txs=len(txs), iterations=iters, ok=res.ok,
+          best_ms=f"{times[0] * 1e3:.3f}", median_ms=f"{times[len(times) // 2] * 1e3:.3f}",
+          all_ms=json.dumps([round(t * 1e3, 3) for t in (r[0] for r in runs)]),
+          split_ms=json.dumps(split), kernel_launches=int(st.get("dispatches", 0)),
+          lanes=int(st.get("lanes", 0)), padded_lanes=int(st.get("padded_lanes", 0)),
+          kernel_ms=f"{st.get('kernel_ms', 0.0):.4f}", warm_kernel_ms=f"{warm_ms:.4f}",
+          busy_share=f"{st.get('kernel_ms', 0.0) / (dt * 1e3):.4f}",
+          fixups=int(st.get("fixups", 0)),
+          fees=res.fees, sigop_cost=res.sigop_cost,
+          python_engine_ms=f"{py_s * 1e3:.3f}", python_equal=same,
+          view_size=len(view), python_view_size=len(plain))
+    if not res.ok or not same or len(view) != len(plain):
+        _fail("connect_block: the block was rejected, or the two paths differ")
+
+    errs = [_hold_to_plain(VT, verifier, lanes, sync) for lanes, _n in seen]
+    _line("block_compare", dispatches=len(seen), lanes=json.dumps([n for _, n in seen]),
+          padded=json.dumps([len(a[0]) for a, _ in seen]), tolerance=0,
+          max_abs_err=max(e for e, _ in errs), kernel_ok=sum(a for _, a in errs))
+    if max(e for e, _ in errs):
+        _fail("kernel and plain version disagree on the block's lanes")
+
+    # The index session's lanes and keys against the wire protocol's records.
+    flags = height_to_flags(height, extended=True)
+    nblk = NB.NativeBlock(block.serialize())
+    (_r, _fe, _so, tx_index, n_in_a, amounts, spk_offs,
+     spk_blob) = nblk.accounting(nview0.clone(), height, flags)
+    n = len(tx_index)
+    sess = NB.NativeSession()
+    t0 = time.perf_counter()
+    idx_out = sess.verify_inputs_idx_raw(
+        [nblk.tx(int(t))._ptr for t in tx_index], n_in_a, amounts, spk_blob, spk_offs,
+        np.full(n, flags, np.int32), _idx_threads())
+    n_u = sess.uniq_count()
+    all_idx = np.arange(n_u, dtype=np.int32)
+    pad = verifier.pad(n_u)
+    uniq_packed = sess.uniq_lanes(all_idx, pad)
+    cache = SigCache()
+    uniq_keys = [d.tobytes() for d in sess.uniq_digests(cache._salt, all_idx)]
+    idx_s = time.perf_counter() - t0
+    wire = NB.NativeSession()
+    t0 = time.perf_counter()
+    w_ok, w_err, w_unk, w_recs = wire.verify_inputs(
+        [nblk.tx(int(t)) for t in tx_index], n_in_a.tolist(), amounts.tolist(),
+        [spk_blob[spk_offs[j]:spk_offs[j + 1]].tobytes() for j in range(n)],
+        [flags] * n, mode=NB.NativeSession.MODE_DEFER)
+    flat = [SigCheck(k, d) for recs in w_recs for k, d in recs]
+    flat += [SigCheck(k, d) for k, d in wire.take_spec()]
+    by_key = dict(zip(cache.keys_for_checks(flat), flat))
+    wire_s = time.perf_counter() - t0
+    checks = [by_key.get(k) for k in uniq_keys]
+    same_checks = (len(set(uniq_keys)) == n_u and set(uniq_keys) == set(by_key)
+                   and all(np.array_equal(a, b) for a, b in
+                           zip(idx_out[:3], (w_ok, w_err, w_unk), strict=True)))
+    packed_equal = same_checks and _same_arrays(uniq_packed, NB.prep_pack(checks, pad))
+    # The pipeline's dispatches (a cold sig cache: every uniq entry, in order).
+    off, sent_equal = 0, same_checks
+    for lanes, n_d in seen:
+        if off >= n_u:
+            break
+        sent_equal = sent_equal and _same_arrays(
+            lanes, NB.prep_pack(checks[off:off + n_d], len(lanes[0])))
+        off += n_d
+    sent_equal = sent_equal and off == n_u
+    _line("block_lanes", inputs=n, uniq=n_u, wire_records=len(flat), padded=pad,
+          same_checks=same_checks, uniq_lanes_equal_prep_pack=packed_equal,
+          dispatched_equal_prep_pack=sent_equal, index_s=f"{idx_s:.4f}",
+          wire_s=f"{wire_s:.4f}")
+    if not (same_checks and packed_equal and sent_equal):
+        _fail("the index session's lanes or keys differ from the wire protocol's")
+
+    def spec(block_txs, j):
+        t, i = divmod(j, 8)
+        return _api_exact(block_txs[t].serialize(), i,
+                          [(f.amount, f.wallet.spk) for f in funded[8 * t:8 * t + 8]],
+                          flags)
+
+    pick = sorted(np.random.default_rng(n_in).choice(n_in, size=min(64, n_in),
+                                                      replace=False).tolist())
+    exact_diff = sum(_verdicts([res.input_results[j]])[0] != spec(txs, j) for j in pick)
+    _line("block_exact", sampled=len(pick), tolerance=0, differing=exact_diff)
+    if exact_diff:
+        _fail("the block's per-input results disagree with the per-input api")
+
+    view = nview0.clone()
+    bad_n = launches_around("block_reject", lambda: connect_block(
+        bad_block, view, height, verifier=verifier, pow_limit=B.REGTEST_POW_LIMIT,
+        sig_cache=SigCache(), script_cache=ScriptExecutionCache()))
+    plain = plain_view()
+    bad_p = connect_block(bad_block, plain, height, verifier=py_verifier,
+                          pow_limit=B.REGTEST_POW_LIMIT, sig_cache=SigCache(),
+                          script_cache=ScriptExecutionCache(), engine="python")
+    failed = [(i, r.error.name, r.script_error.name)
+              for i, r in enumerate(bad_n.input_results or []) if not r.ok]
+    unchanged = (len(view) == len(nview0) == len(plain) == len(entries)
+                 and view.get(funded[0].outpoint) is not None)
+    bad_diff = sum(_verdicts([bad_n.input_results[j]])[0] != spec(bad_txs, j)
+                   for j in range(8 * k, 8 * k + 8)) if bad_n.input_results else 8
+    _line("block_reject", reason=bad_n.reason, python_reason=bad_p.reason,
+          python_equal=tup(bad_n) == tup(bad_p), failed_inputs=json.dumps(failed),
+          bad_tx_inputs_vs_api_differing=bad_diff, views_unchanged=unchanged)
+    if bad_n.reason != "block-validation-failed" or tup(bad_n) != tup(bad_p) \
+            or len(failed) != 1 or failed[0][0] != 8 * k + 1 \
+            or failed[0][1] != "ERR_SCRIPT" or bad_diff or not unchanged:
+        _fail("the block with a corrupted signature was not rejected alike")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rehearse-cpu", action="store_true",
@@ -384,7 +755,7 @@ def main() -> int:
     if not args.rehearse_cpu and not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
         return 2
-    port = _import_port()
+    _import_port()
     from bitcoinconsensus_tpu_torch import api, native_bridge
     from bitcoinconsensus_tpu_torch.crypto.torch_backend import TorchSecpVerifier
     from bitcoinconsensus_tpu_torch.models.batch import verify_batch
@@ -440,13 +811,26 @@ def main() -> int:
           seconds=f"{t_gen:.3f}")
     if not any(corrupted):
         _fail("the data holds no corrupted input")
+    path_launches = {}  # each path's kernel launches, counted around it alone
 
-    def drive(engine):
-        """One `verify_batch` over `items` on `engine` with fresh caches:
-        (results, launches, the verifier, the checks it dispatched, total s).
-        The launch count is set to 0 just before the call, read just after."""
+    def launches_around(path, fn):
+        """fn() with the launch count set to 0 just before it and read just
+        after; fails if the path never launched the kernel."""
+        sync()
+        VT.verify_tiles.launches = 0
+        out = fn()
+        sync()
+        path_launches[path] = VT.verify_tiles.launches
+        if not rehearse and path_launches[path] == 0:
+            _fail(f"the {path} path never launched the verify_tiles kernel")
+        return out
+
+    def drive(path, engine, driver="index"):
+        """One `verify_batch` over `items` on `engine` with fresh caches, in
+        index mode or through the wire driver: (results, launches, the
+        verifier, the checks it dispatched through `verify_checks`, s)."""
         verifier = TorchSecpVerifier(device=device, engine=engine)
-        sent = []  # the checks the verifier dispatched, in order
+        sent = []  # the checks the wire seam dispatched, in order
         verify_checks = verifier.verify_checks
 
         def recording(checks):
@@ -454,54 +838,86 @@ def main() -> int:
             return verify_checks(checks)
 
         verifier.verify_checks = recording
-        sync()
-        VT.verify_tiles.launches = 0
-        t0 = time.perf_counter()
-        results = verify_batch(items, verifier=verifier, sig_cache=SigCache(),
-                               script_cache=ScriptExecutionCache(), engine=engine)
-        sync()
-        t_total = time.perf_counter() - t0
-        launches = VT.verify_tiles.launches
-        if not rehearse and launches == 0:
-            _fail(f"the {engine} main path never launched the verify_tiles kernel")
-        return results, launches, verifier, sent, t_total
+        os.environ["BITCOINCONSENSUS_TPU_IDX"] = "0" if driver == "wire" else "1"
+        try:
+            def run():
+                t0 = time.perf_counter()
+                res = verify_batch(items, verifier=verifier, sig_cache=SigCache(),
+                                   script_cache=ScriptExecutionCache(), engine=engine)
+                sync()
+                return res, time.perf_counter() - t0
+            results, t_total = launches_around(path, run)
+        finally:
+            os.environ.pop("BITCOINCONSENSUS_TPU_IDX", None)
+        return results, path_launches[path], verifier, sent, t_total
 
-    def split(phase, engine, results, launches, verifier, t_total):
+    def split(phase, engine, driver, results, launches, verifier, t_total):
         st = verifier.stats
-        prep_interp = t_total - st["lane_prep_s"] - st["device_wait_s"] - st["fixup_s"]
-        _line(phase, engine=engine, inputs=len(results), checks=int(st["lanes"]),
+        ph = {k: v["secs"] for k, v in verifier.phases.report().items()}
+        dispatch_s = ph.get("dispatch", 0.0)
+        prep_interp = (t_total - st["lane_prep_s"] - dispatch_s
+                       - st["device_wait_s"] - st["fixup_s"])
+        _line(phase, engine=engine, driver=driver, inputs=len(results),
+              checks=int(st["lanes"]), padded_lanes=int(st["padded_lanes"]),
               dispatches=int(st["dispatches"]), kernel_launches=launches,
-              fixups=int(st["fixups"]), total_s=f"{t_total:.3f}",
-              prepare_interpret_s=f"{prep_interp:.3f}",
-              lane_prep_s=f"{st['lane_prep_s']:.3f}",
-              device_wait_s=f"{st['device_wait_s']:.3f}",
+              fixups=int(st["fixups"]), total_s=f"{t_total:.4f}",
+              prepare_interpret_s=f"{prep_interp:.4f}",
+              interpret_s=f"{ph.get('interpret', 0.0):.4f}",
+              lane_prep_s=f"{st['lane_prep_s']:.4f}", dispatch_s=f"{dispatch_s:.4f}",
+              device_wait_s=f"{st['device_wait_s']:.4f}",
               kernel_ms=f"{st['kernel_ms']:.3f}", fixup_s=f"{st['fixup_s']:.4f}",
               inputs_per_s=f"{len(results) / t_total:.1f}",
               checks_per_s=f"{st['lanes'] / t_total:.1f}")
 
-    def verdicts(results):
-        return [(r.ok, r.error, r.script_error) for r in results]
-
-    results, launches, verifier, sent, t_total = drive("native")
-    split("main_path", "native", results, launches, verifier, t_total)
-    py_run = drive("python")
-    split("main_path_python", "python", py_run[0], *py_run[1:3], py_run[4])
+    verdicts = _verdicts
+    results, launches, _v, _s, t_total = drive("main_path", "native")
+    split("main_path", "native", "index", results, launches, _v, t_total)
+    wire_run = drive("main_path_wire", "native", "wire")
+    split("main_path_wire", "native", "wire", wire_run[0], *wire_run[1:3], wire_run[4])
+    _r, _l, verifier, sent, _t = wire_run
+    py_run = drive("main_path_python", "python")
+    split("main_path_python", "python", "wire", py_run[0], *py_run[1:3], py_run[4])
+    n_wire_diff = sum(a != b for a, b in zip(verdicts(results), verdicts(wire_run[0])))
     n_engine_diff = sum(a != b for a, b in zip(verdicts(results), verdicts(py_run[0])))
-    _line("engines", inputs=len(items), tolerance=0, verdicts_differing=n_engine_diff,
-          native_launches=launches, python_launches=py_run[1])
-    if n_engine_diff or len(py_run[0]) != len(results):
-        _fail("the native and Python engines' verdicts differ")
+    _line("engines", inputs=len(items), tolerance=0,
+          index_vs_wire_differing=n_wire_diff, index_vs_python_differing=n_engine_diff,
+          index_launches=launches, wire_launches=wire_run[1], python_launches=py_run[1])
+    if n_wire_diff or n_engine_diff or not (
+            len(results) == len(wire_run[0]) == len(py_run[0]) == len(items)):
+        _fail("the index-mode, wire and Python drivers' verdicts differ")
+
+    # The two native drivers again, in turns (wire, index, index, wire), each
+    # with a fresh verifier and caches: the first call of a process pays
+    # one-time costs, so only runs in turns compare the drivers.
+    turns = {"index": [], "wire": []}
+    for driver in ("wire", "index", "index", "wire"):
+        verifier_t = TorchSecpVerifier(device=device)
+        os.environ["BITCOINCONSENSUS_TPU_IDX"] = "0" if driver == "wire" else "1"
+        try:
+            sync()
+            t0 = time.perf_counter()
+            res_t = verify_batch(items, verifier=verifier_t, sig_cache=SigCache(),
+                                 script_cache=ScriptExecutionCache())
+            sync()
+            dt = time.perf_counter() - t0
+        finally:
+            os.environ.pop("BITCOINCONSENSUS_TPU_IDX", None)
+        st = verifier_t.stats
+        disp = verifier_t.phases.report().get("dispatch", {"secs": 0.0})["secs"]
+        turns[driver].append((dt, dt - st["lane_prep_s"] - disp - st["device_wait_s"]
+                              - st["fixup_s"]))
+        if verdicts(res_t) != verdicts(results):
+            _fail(f"the {driver} driver's verdicts changed between runs")
+    _line("drivers_turns", order="wire,index,index,wire",
+          index_total_s=json.dumps([round(t, 4) for t, _ in turns["index"]]),
+          wire_total_s=json.dumps([round(t, 4) for t, _ in turns["wire"]]),
+          index_prepare_interpret_s=json.dumps([round(p, 4) for _, p in turns["index"]]),
+          wire_prepare_interpret_s=json.dumps([round(p, 4) for _, p in turns["wire"]]),
+          index_over_wire=f"{sum(t for t, _ in turns['index']) / sum(t for t, _ in turns['wire']):.3f}")
 
     def exact(item):
-        """The per-input `api` on its Python engine: a spec independent of
-        the native core under test."""
-        try:
-            api.verify_with_spent_outputs(item.spending_tx, item.input_index,
-                                          item.spent_outputs, item.flags,
-                                          engine="python")
-            return (True, api.Error.ERR_OK, port.ScriptError.OK)
-        except api.ConsensusError as e:
-            return (False, e.code, e.script_error)
+        return _api_exact(item.spending_tx, item.input_index, item.spent_outputs,
+                          item.flags)
 
     n_bad_ok = n_clean_fail = 0
     for item, res, bad in zip(items, results, corrupted):
@@ -525,6 +941,9 @@ def main() -> int:
     if n_bad_ok or n_clean_fail or n_sample_diff:
         _fail("verify_batch verdicts disagree with the expected ones")
 
+    _stream(items, results, device, sync, launches_around, rehearse)
+    _block(device, sync, launches_around, rehearse)
+
     # -- 4. lane packing, and the kernel against its plain version ---------------
     pack_checks = sent[:n_lanes]
     t0 = time.perf_counter()
@@ -534,9 +953,8 @@ def main() -> int:
     t0 = time.perf_counter()
     nat_packed = native_bridge.prep_pack(pack_checks, verifier._pad(len(pack_checks)))
     nat_pack_s = time.perf_counter() - t0
-    pack_diff = sum(
-        a.shape != b.shape or a.dtype != b.dtype or a.tobytes() != b.tobytes()
-        for a, b in zip(py_packed, nat_packed, strict=True))
+    pack_diff = sum(not _same_arrays([a], [b])
+                    for a, b in zip(py_packed, nat_packed, strict=True))
     _line("lane_pack", lanes=len(pack_checks), padded=len(nat_packed[0]),
           arrays=len(nat_packed), arrays_differing=pack_diff,
           native_s=f"{nat_pack_s:.4f}", python_s=f"{py_pack_s:.4f}")
@@ -614,6 +1032,7 @@ def main() -> int:
         "source": "bitcoinconsensus_tpu_torch/csrc/verify_tiles.cu",
         "replaces": "bitcoinconsensus_tpu/ops/pallas_kernel.py:490",
         "launches": launches,
+        "launches_by_path": path_launches,
         "max_abs_err": err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

@@ -345,3 +345,104 @@ def test_checked_defect_kernels_show_the_plain_versions_faults(toy, width):
     assert torch.equal(faults.cpu(), pfaults) and torch.equal(writes.cpu(), pwrites)
     once = pwrites == 1  # elements two blocks race on have no defined value
     assert torch.equal(o.cpu()[once], po[once])
+
+
+# -- the asynchronous seams, the block driver and the stream on the card --------------
+
+
+@pytest.mark.gpu
+def test_dispatch_lanes_returns_before_the_kernel_finishes():
+    """A 32,768-lane dispatch returns while its kernel still runs (its end
+    event not yet reached: nothing synchronised), and `sync_lanes` then
+    gives `verify_checks`'s verdicts on the same checks."""
+    _need_cuda()
+    v = TorchSecpVerifier()
+    base = _checks(96) + [_collision()]
+    checks = (base * (32_767 // len(base) + 1))[:32_767]
+    lanes = native_bridge.prep_pack(checks, v.pad(len(checks)))
+    assert len(lanes[0]) == 32_768
+    torch.cuda.synchronize()
+    pending = v.dispatch_lanes(lanes, len(checks))
+    running = not pending.events[1].query()
+    assert v.in_flight == 1
+    ok, needs = v.sync_lanes(pending, len(checks))
+    assert running, "dispatch_lanes waited for the kernel"
+    assert v.in_flight == 0 and pending.events[1].query()
+    fixed = ok.copy()
+    for i in np.nonzero(needs)[0]:
+        fixed[i] = v._host_check(checks[i])
+    assert np.array_equal(fixed, v.verify_checks(checks))
+    assert needs[96] and fixed.all()
+
+
+def _block_200(corrupt=None):
+    coins, funded = B.make_funded_view(
+        200, kinds=("p2wpkh", "p2tr", "p2wpkh", "p2wsh_multisig"), seed="gpu-block")
+    txs = [B.build_spend_tx(funded[i:i + 8], fee=800,
+                            corrupt_input=3 if i == corrupt else None)
+           for i in range(0, 200, 8)]
+    block = B.build_block(txs, 710_000, fees=800 * len(txs))
+    entries = [(t, n, c.out.value, c.height, c.coinbase, c.out.script_pubkey)
+               for (t, n), c in coins._map.items()]
+    return block, entries
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("corrupt", [None, 96])
+def test_connect_block_on_cuda_equals_the_cpu(corrupt):
+    """A 200-input block through `connect_block` on a NativeCoinsView: the
+    card's result, per input, equals the plain version's on the CPU."""
+    _need_cuda()
+    from bitcoinconsensus_tpu_torch.models.validate import connect_block
+
+    block, entries = _block_200(corrupt)
+    got = {}
+    for device in ("cuda:0", "cpu"):
+        view = native_bridge.NativeCoinsView()
+        view.add_coins_batch(entries)
+        before = VT.verify_tiles.launches
+        res = connect_block(block, view, 710_000, pow_limit=B.REGTEST_POW_LIMIT,
+                            verifier=TorchSecpVerifier(device=device, min_batch=512,
+                                                       pad_step=2048),
+                            sig_cache=SigCache(), script_cache=ScriptExecutionCache())
+        if device == "cuda:0":
+            assert VT.verify_tiles.launches > before
+        got[device] = (res.ok, res.reason, res.fees, res.sigop_cost, len(view),
+                       [(r.ok, r.error, r.script_error) for r in res.input_results])
+    assert got["cuda:0"] == got["cpu"]
+    assert got["cuda:0"][0] == (corrupt is None)
+
+
+@pytest.mark.gpu
+def test_stream_closed_midway_leaves_the_device_clean():
+    _need_cuda()
+    from bitcoinconsensus_tpu_torch.models.batch import verify_batch_stream
+
+    items, _bad = B.mixed_items(300, seed=77, corrupt_rate=0.05)
+    batches = [items[i:i + 60] for i in range(0, 300, 60)]
+    v = TorchSecpVerifier()
+    want = [verify_batch(b, verifier=v, sig_cache=SigCache(),
+                         script_cache=ScriptExecutionCache()) for b in batches]
+    gen = verify_batch_stream(iter(batches), verifier=v, sig_cache=SigCache(),
+                              script_cache=ScriptExecutionCache(), depth=3)
+    assert next(gen) == want[0]
+    assert v.in_flight >= 1
+    gen.close()
+    assert v.in_flight == 0
+    torch.cuda.synchronize()
+    assert list(verify_batch_stream(iter(batches), verifier=v, sig_cache=SigCache(),
+                                    script_cache=ScriptExecutionCache())) == want
+    assert v.in_flight == 0
+
+
+@pytest.mark.gpu
+def test_single_check_wrappers_and_default_verifier_on_cuda():
+    _need_cuda()
+    from bitcoinconsensus_tpu_torch.crypto.torch_backend import default_verifier
+
+    v = default_verifier()
+    assert v is default_verifier() and v.device.type == "cuda"
+    ecdsa, schnorr, tweak = (c.data for c in _checks(3))
+    assert v.verify_ecdsa(*ecdsa) and v.verify_schnorr(*schnorr) and v.tweak_add_check(*tweak)
+    bad = ecdsa[2][:-1] + bytes([ecdsa[2][-1] ^ 1])
+    assert not v.verify_ecdsa(ecdsa[0], ecdsa[1], bad)

@@ -354,25 +354,33 @@ def _misaligned_multisig(seed: str, corrupt: bool = False) -> BatchItem:
 
 
 @pytest.mark.parametrize("corrupt", [False, True])
-def test_misaligned_multisig_single_dispatch(core, corrupt):
+def test_misaligned_multisig_single_dispatch(core, corrupt, monkeypatch):
     """The native engine's speculative pairings resolve a misaligned 2-of-3
-    in one dispatch of its 4 reachable pairings; the Python engine needs the
-    fixpoint's second. A corrupted second signature fails exactly."""
+    in one dispatch of its 4 reachable pairings, in index mode (through
+    `dispatch_lanes`) and in the wire driver (through `verify_checks`); the
+    Python engine needs the fixpoint's second. A corrupted second signature
+    fails exactly."""
     item = _misaligned_multisig("torch-spec" + "-bad" * corrupt, corrupt)
     want = _reference(JAPI, item)
     assert want[0] is (not corrupt)
-    for engine, sizes in (("native", [4]), ("python", None)):
+    for engine, idx, sizes in (("native", "1", [("dispatch_lanes", 4)]),
+                               ("native", "0", [("verify_checks", 4)]),
+                               ("python", "1", None)):
+        monkeypatch.setenv("BITCOINCONSENSUS_TPU_IDX", idx)
         v = TorchSecpVerifier(device="cpu", engine=engine)
         calls = []
-        orig = v.verify_checks
-        v.verify_checks = lambda checks: calls.append(len(checks)) or orig(checks)
+        checks_seam, lanes_seam = v.verify_checks, v.dispatch_lanes
+        v.verify_checks = lambda checks: (calls.append(("verify_checks", len(checks)))
+                                          or checks_seam(checks))
+        v.dispatch_lanes = lambda args, n: (calls.append(("dispatch_lanes", n))
+                                            or lanes_seam(args, n))
         got = verify_batch([item], verifier=v, sig_cache=SigCache(),
                            script_cache=ScriptExecutionCache(), engine=engine)
         assert _norm(got) == [want]
         if sizes is not None:
             assert calls == sizes
         else:
-            assert len(calls) >= 2
+            assert len(calls) >= 2 and {c[0] for c in calls} == {"verify_checks"}
 
 
 def test_malformed_tx_with_huge_claimed_counts(core):

@@ -41,6 +41,14 @@ def test_no_jax_or_jax_package_imports(path):
     assert not bad, f"{path} imports {sorted(bad)}"
 
 
+def test_walk_covers_the_block_and_index_mode_modules():
+    rel = {os.path.relpath(p, REPO) for p in _sources()}
+    for mod in ("models/validate.py", "models/batch.py", "core/block.py",
+                "core/tx_check.py", "utils/profiling.py", "utils/blockgen.py",
+                "native_bridge.py", "crypto/torch_backend.py"):
+        assert os.path.join("bitcoinconsensus_tpu_torch", mod) in rel
+
+
 def test_runs_with_jax_unavailable():
     code = textwrap.dedent(f"""
         import sys
@@ -60,6 +68,16 @@ def test_runs_with_jax_unavailable():
         assert out.tolist() == [True, False], out
         from bitcoinconsensus_tpu_torch import native_bridge
         assert native_bridge._lib is not None  # the lanes were packed natively
+        from bitcoinconsensus_tpu_torch import NativeCoinsView, connect_block
+        from bitcoinconsensus_tpu_torch import verify_batch_stream  # noqa: F401
+        coins, funded = B.make_funded_view(2, seed="no-jax")
+        block = B.build_block([B.build_spend_tx(funded)], 710_000, fees=1000)
+        view = NativeCoinsView()
+        view.add_coins_batch([(t, n, c.out.value, c.height, c.coinbase,
+                               c.out.script_pubkey) for (t, n), c in coins._map.items()])
+        res = connect_block(block, view, 710_000, check_scripts=False,
+                            pow_limit=B.REGTEST_POW_LIMIT)
+        assert res.ok and len(view) == 3, res  # 2 spent; 2 coinbase outputs, 1 spend
         assert not any(m == "bitcoinconsensus_tpu" or m.startswith("bitcoinconsensus_tpu.")
                        for m in sys.modules)
         print("ok")
