@@ -9,7 +9,8 @@ Layout (the JAX package's names, so each counterpart is easy to find):
 - ``core``    — host consensus engine: tx codec, interpreter, sighash,
                 the block codec and CheckBlock
 - ``crypto``  — secp256k1 host oracle, GLV split, the batched verifier
-                and its asynchronous seams
+                and its asynchronous seams, compact-signature recovery
+                and BIP32 public derivation
 - ``ops``     — field and group ops as torch ops, the verify kernel's
                 wrapper and plain version, the nvcc and g++ builds
 - ``csrc``    — CUDA sources, and the native host core (``csrc/native``)
@@ -19,6 +20,8 @@ Layout (the JAX package's names, so each counterpart is easy to find):
                 and the caches
 - ``utils``   — hashing, phase timers, synthetic spends and blocks for
                 tests and chip_smoke.py
+- ``analysis`` — the kernel prover, the scalar-schedule prover and the
+                host lint (``python -m bitcoinconsensus_tpu_torch.analysis.lint``)
 
 Entry points run on the card unless the caller asks for the CPU:
 ``verify_batch(items)``, ``verify_batch_stream(batches)`` and
@@ -32,33 +35,53 @@ native core; on a plain ``CoinsView`` it runs in Python.
 """
 
 from .api import (
+    VERIFY_ALL_EXTENDED,
+    VERIFY_ALL_LIBCONSENSUS,
     ConsensusError,
     Error,
+    height_to_flags,
     verify,
     verify_with_flags,
     verify_with_spent_outputs,
+    version,
 )
+from .core import flags
 from .core.script_error import ScriptError
+from .crypto.bip32 import ExtPubKey, pubkey_derive
+from .crypto.recovery import recover_compact
 from .crypto.torch_backend import SigCheck, TorchSecpVerifier
 from .models.batch import BatchItem, BatchResult, verify_batch, verify_batch_stream
 from .models.validate import CoinsView, ConnectResult, connect_block
 from .native_bridge import NativeCoinsView
 
+__version__ = "0.1.0"
+
+# The reference's exports first (`bitcoinconsensus_tpu/__init__.py`), then
+# the port's own.
 __all__ = [
+    "ConsensusError",
+    "Error",
+    "ExtPubKey",
+    "ScriptError",
+    "VERIFY_ALL_EXTENDED",
+    "VERIFY_ALL_LIBCONSENSUS",
+    "flags",
+    "height_to_flags",
+    "pubkey_derive",
+    "recover_compact",
+    "verify",
+    "verify_with_flags",
+    "verify_with_spent_outputs",
+    "version",
+
     "BatchItem",
     "BatchResult",
     "CoinsView",
     "ConnectResult",
-    "ConsensusError",
-    "Error",
     "NativeCoinsView",
-    "ScriptError",
     "SigCheck",
     "TorchSecpVerifier",
     "connect_block",
-    "verify",
     "verify_batch",
     "verify_batch_stream",
-    "verify_with_flags",
-    "verify_with_spent_outputs",
 ]

@@ -7,15 +7,20 @@
     python -m bitcoinconsensus_tpu_torch.analysis.lint --negative oob-index-map
     python -m bitcoinconsensus_tpu_torch.analysis.lint --negative list
     python -m bitcoinconsensus_tpu_torch.analysis.lint --exactness --quick
+    python -m bitcoinconsensus_tpu_torch.analysis.lint --schedule --quick
+    python -m bitcoinconsensus_tpu_torch.analysis.lint --schedule
+    python -m bitcoinconsensus_tpu_torch.analysis.lint --negative scalar-carry-fold
+    python -m bitcoinconsensus_tpu_torch.analysis.lint --host
 
 The port's counterpart of `scripts/consensus_lint.py`. Exit status 0 if
 and only if every selected kernel proves. The JSON report carries each
 entry's derived per-row output bounds and, for launch contracts, the grid
 and the shared bytes a block declares.
 
-`--negative NAME` checks one deliberately broken toy of
-`analysis/kernel_check.NEGATIVES` and exits non-zero with its diagnostics:
-the gate proving it still fires.
+`--negative NAME` checks one deliberately broken toy, a kernel of
+`analysis/kernel_check.NEGATIVES` or a scalar schedule of
+`analysis/scalar_check.NEGATIVES` (`scalar-*`), and exits non-zero with its
+diagnostics: the gate proving it still fires.
 
 `--exactness` is the exact-float leg: each selected entry is a THEOREM
 (every float32 value it makes is proven an exact integer), VACUOUS (it makes
@@ -23,8 +28,24 @@ none) or FAIL (a `float` violation), and every `f32-*` negative must come
 back rejected with a `float` violation. Exit 0 if and only if nothing
 FAILs and every such negative is rejected.
 
-Not here yet: the scalar-schedule leg (`--schedule`) and the host lint of
-the reference's CLI; they come with later slices of the port.
+`--schedule` is the scalar-schedule theorem leg: every target of
+`analysis/registry.all_schedules()` (with `--quick`, the fast set; with
+`--kernel NAME`, the named ones) must be a THEOREM, the sound toy ladder
+must pass, and every `scalar-*` negative must be REJECTED with a `schedule`
+violation. Exit 0 if and only if all hold.
+
+`--host` is the host lint (`analysis/host_lint.py`): the float,
+nondeterminism and clock rules over `core/` and `models/`, the clock rule
+over `crypto/`, the sync rule over `crypto/torch_backend.py`, and scalar
+coverage over `ops/`, `crypto/glv.py` and `csrc/verify_tiles.cu`. Exit 0 if
+and only if it finds nothing.
+
+Not here yet, each with the module it waits for: the region-coverage rule
+(`ops/regions.py`, with `obs/`); the reference's `precision` and `pallas`
+rules (no torch or CUDA counterpart in the port today); the `sync` rule over
+`mesh.py`, `inflight.py`, `ingress.py` and `sigstore.py`; the
+`sha256.bytes_from_words` and `curve.double_scalar_mult(_glv)` schedule
+targets; and the certificate counter of `--schedule` (with `obs/`).
 """
 
 from __future__ import annotations
@@ -41,8 +62,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m bitcoinconsensus_tpu_torch.analysis.lint",
         description=__doc__.split("\n\n")[0],
-        epilog="Not yet ported: --schedule and the host lint (later "
-               "slices).")
+        epilog="Not yet ported: region coverage, the precision and pallas "
+               "rules, obs counters (see the module docstring).")
     ap.add_argument("--quick", action="store_true",
                     help="skip heavy entries (the verify kernel's body proof)")
     ap.add_argument("--kernel", action="append", default=None,
@@ -57,16 +78,26 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--exactness", action="store_true",
                     help="the exact-float leg: THEOREM / VACUOUS / FAIL per "
                          "entry, and every f32-* negative rejected")
+    ap.add_argument("--schedule", action="store_true",
+                    help="scalar-schedule theorem leg: certify every schedule "
+                         "target (the fast set with --quick) and reject every "
+                         "scalar-* negative")
+    ap.add_argument("--host", action="store_true",
+                    help="host lint: determinism, clock, sync and scalar "
+                         "coverage rules")
     args = ap.parse_args(argv)
 
-    from . import kernel_check, registry
+    from . import kernel_check, registry, scalar_check
 
     if args.negative:
         if args.negative == "list":
-            for n in sorted(kernel_check.NEGATIVES):
+            for n in sorted(kernel_check.NEGATIVES) + sorted(scalar_check.NEGATIVES):
                 print(n)
             return 0
-        rep = kernel_check.analyze_negative(args.negative)
+        if args.negative in scalar_check.NEGATIVES:
+            rep = scalar_check.analyze_negative(args.negative)
+        else:
+            rep = kernel_check.analyze_negative(args.negative)
         print(f"negative toy `{args.negative}`: "
               f"{'FAILED the gate (expected)' if not rep.ok else 'PROVED CLEAN (gate is dead!)'}")
         for v in rep.violations:
@@ -75,9 +106,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 1 if not rep.ok else 0
 
     if args.list:
-        for s in registry.all_kernels():
+        for s in registry.all_kernels() + registry.all_schedules():
             print(f"{s.name:32s} {'heavy' if s.heavy else ''}")
         return 0
+
+    if args.host:
+        return _host()
+    if args.schedule:
+        return _schedule(args, registry, scalar_check)
 
     if args.kernel:
         specs = [registry.get_kernel(n) for n in args.kernel]
@@ -118,6 +154,70 @@ def main(argv: Optional[List[str]] = None) -> int:
     peak_mb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss // 1024
     print(f"\nkernel lint: {'OK' if all_ok else 'FAILED'}  (peak RSS {peak_mb} MB)")
     return 0 if all_ok else 1
+
+
+def _host() -> int:
+    import os
+
+    from . import host_lint
+
+    repo = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    print("== host lint (core/, models/; clock rule over crypto/; sync rule "
+          "over crypto/torch_backend.py) ==")
+    findings = host_lint.lint_consensus_host(repo)
+    print("\n== scalar-recoder coverage (ops/, crypto/glv.py, "
+          "csrc/verify_tiles.cu) ==")
+    findings += host_lint.lint_scalar_recoders(repo)
+    for f in findings:
+        print(f"  {f}")
+    print(f"\nhost lint: {len(findings)} findings")
+    return 1 if findings else 0
+
+
+def _schedule(args, registry, scalar_check) -> int:
+    if args.kernel:
+        specs = [registry.get_schedule(n) for n in args.kernel]
+    else:
+        specs = registry.all_schedules(include_heavy=not args.quick)
+    print("== scalar-schedule theorems (bit slices, carry automaton, GLV, "
+          "weight ledger) ==")
+    ok = True
+    sections = []
+    for spec in specs:
+        t0 = time.perf_counter()
+        cert = spec.certify(quick=args.quick)
+        dt = time.perf_counter() - t0
+        print(f"  {spec.name:32s} {cert.status}  facts={len(cert.facts)}  "
+              f"({dt:.1f}s)", flush=True)
+        for f in cert.failures[:8]:
+            print(f"      {f}")
+        d = cert.to_dict()
+        d["seconds"] = round(dt, 2)
+        sections.append(d)
+        ok = ok and cert.ok
+    print("\n== sound toy schedule must PASS (checker liveness) ==")
+    cert = scalar_check.toy_ladder_selftest()
+    print(f"  {'toy-ladder-selftest':32s} {cert.status}")
+    for f in cert.failures[:8]:
+        print(f"      {f}")
+    sections.append({"name": "selftest.toy_ladder", "status": cert.status,
+                     "ok": cert.ok})
+    ok = ok and cert.ok
+    print("\n== unsound scalar toys must be rejected ==")
+    for name in sorted(scalar_check.NEGATIVES):
+        rep = scalar_check.analyze_negative(name)
+        rejected = not rep.ok and any(v.kind == "schedule" for v in rep.violations)
+        print(f"  {name:32s} "
+              f"{'REJECTED (expected)' if rejected else 'NOT REJECTED (gate is dead!)'}")
+        sections.append({"name": f"negative.{name}", "rejected": rejected})
+        ok = ok and rejected
+    if args.report:
+        with open(args.report, "w") as fh:
+            json.dump({"schedule": sections}, fh, indent=2, sort_keys=True,
+                      default=str)
+        print(f"\nreport written to {args.report}")
+    print(f"\nschedule theorems: {'OK' if ok else 'FAILED'}")
+    return 0 if ok else 1
 
 
 def _exactness(specs, kernel_check, report_path: Optional[str]) -> int:

@@ -21,6 +21,13 @@ To register a kernel:
                heavy=False)
 
 and `python -m bitcoinconsensus_tpu_torch.analysis.lint` picks it up.
+
+The scalar-schedule prover's targets (`analysis/scalar_check.py`) are listed
+as `ScheduleSpec`s (`all_schedules`), which `lint --schedule` certifies.
+The reference's `sha256.bytes_from_words` target and its
+`curve.double_scalar_mult(_glv)` ladders wait for the port's modules that
+hold them; the ladders the port has are its verify kernel's, certified as
+`verify_tiles.plain_schedule` and `verify_tiles.cuda_schedule`.
 """
 
 from __future__ import annotations
@@ -120,6 +127,59 @@ def _specs() -> List[KernelSpec]:
                         "64-lane block; the CUDA kernel's 8x32-bit words are "
                         "held to it bit for bit on the card, not proven"),
     ]
+
+
+@dataclass
+class ScheduleSpec:
+    """A scalar-schedule prover target: digit recoders, the GLV split and
+    the window ladders. `certify` returns a CertResult whose status is
+    THEOREM / VACUOUS / FAIL, fail-closed like the kernels above."""
+
+    name: str
+    heavy: bool = False  # heavy: walks a whole verify lane (seconds on CPU)
+    note: str = ""
+
+    def certify(self, quick: bool = False):
+        from . import scalar_check
+        return scalar_check.certify(self.name, quick=quick)
+
+
+def _schedule_specs() -> List[ScheduleSpec]:
+    return [
+        ScheduleSpec("scalar._digits",
+                     note="4- and 8-bit window recoding: exact bit-slice "
+                          "theorem over the aten graph"),
+        ScheduleSpec("scalar._digits128",
+                     note="recoding of the GLV halves, the signed recoder's "
+                          "raw digits and their top window"),
+        ScheduleSpec("scalar.bytes_to_limbs",
+                     note="byte->limb packing, 32B/20L and 16B/10L; the host "
+                          "packers held to it"),
+        ScheduleSpec("scalar._signed_digits128",
+                     note="signed window recoder: exhaustive carry automaton "
+                          "through torch, the .cu's g++ build and vt_recode"),
+        ScheduleSpec("glv.split_lambda",
+                     note="lattice constants + |k1|,|k2| < 2^128 certificate"),
+        ScheduleSpec("verify_tiles.plain_schedule", heavy=True,
+                     note="verify_tiles_reference: table object flow, signed "
+                          "ledger, G rows, differential"),
+        ScheduleSpec("verify_tiles.cuda_schedule", heavy=True,
+                     note="csrc/verify_tiles.cu lane program through its hooks: "
+                          "signed ledger, identity doublings, G rows, source "
+                          "checks, differential"),
+    ]
+
+
+def all_schedules(include_heavy: bool = True) -> List[ScheduleSpec]:
+    specs = _schedule_specs()
+    return specs if include_heavy else [s for s in specs if not s.heavy]
+
+
+def get_schedule(name: str) -> ScheduleSpec:
+    for s in _schedule_specs():
+        if s.name == name:
+            return s
+    raise KeyError(name)
 
 
 def all_kernels(include_heavy: bool = True) -> List[KernelSpec]:

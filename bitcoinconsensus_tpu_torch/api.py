@@ -1,7 +1,8 @@
 """Per-input API: the exact host path, one input at a time.
 
 Port of `bitcoinconsensus_tpu/api.py`: ``verify``, ``verify_with_flags``,
-``verify_with_spent_outputs``, the transport-level error enum, the
+``verify_with_spent_outputs``, ``version``, ``height_to_flags``, the
+transport-level error enum, the
 libconsensus flag subset restriction and the check order of the reference C
 ABI shim (`script/bitcoinconsensus.cpp:74-129`: flags → deserialize → index
 → size). Each input runs on the native host core in exact mode
@@ -23,6 +24,7 @@ from .core.flags import (
     VERIFY_ALL_EXTENDED,
     VERIFY_ALL_LIBCONSENSUS,
     VERIFY_TAPROOT,
+    height_to_flags,
 )
 from .core.interpreter import TransactionSignatureChecker, verify_script
 from .core.script_error import ScriptError
@@ -36,9 +38,13 @@ __all__ = [
     "verify",
     "verify_with_flags",
     "verify_with_spent_outputs",
+    "version",
+    "height_to_flags",
     "VERIFY_ALL_LIBCONSENSUS",
     "VERIFY_ALL_EXTENDED",
 ]
+
+API_VERSION = 1  # bitcoinconsensus.h:36 BITCOINCONSENSUS_API_VER
 
 
 class Error(enum.IntEnum):
@@ -63,6 +69,11 @@ class ConsensusError(Exception):
         self.script_error = script_error
         detail = f", script_error={script_error.name}" if script_error is not None else ""
         super().__init__(f"{code.name}{detail}")
+
+
+def version() -> int:
+    """bitcoinconsensus_version (bitcoinconsensus.cpp:125-129)."""
+    return API_VERSION
 
 
 def _verify_input(

@@ -26,7 +26,6 @@ fixup is part of the kernel's contract.
 from __future__ import annotations
 
 import threading
-import time
 from collections import defaultdict
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -39,7 +38,7 @@ from ..ops.curve import G_X
 from ..ops.verify_tiles import verify_tiles
 from ..utils.gcpause import gc_paused
 from ..utils.hashes import tagged_hash
-from ..utils.profiling import Phases
+from ..utils.profiling import Phases, accumulate
 from .glv import split_lambda
 from .secp_host import N, parse_der_lax
 
@@ -387,9 +386,8 @@ class TorchSecpVerifier:
         """Wait for one dispatch: (ok[:n], needs_host[:n]) as numpy bools."""
         if pending.settled:
             raise ValueError("this dispatch was already settled")
-        t0 = time.perf_counter()
-        both = torch.stack((pending.ok[:n], pending.needs[:n])).cpu().numpy()
-        self.stats["device_wait_s"] += time.perf_counter() - t0
+        with accumulate(self.stats, "device_wait_s"):
+            both = torch.stack((pending.ok[:n], pending.needs[:n])).cpu().numpy()
         if pending.events is not None:
             self.stats["kernel_ms"] += pending.events[0].elapsed_time(pending.events[1])
         pending.settled = True
@@ -421,13 +419,11 @@ class TorchSecpVerifier:
         cap = self.lane_capacity
         for start in range(0, len(checks), cap):
             sub = checks[start : start + cap]
-            t0 = time.perf_counter()
-            with self.phases("host_prep"):
+            with accumulate(self.stats, "lane_prep_s"), self.phases("host_prep"):
                 if self.native:
                     packed = native_bridge.prep_pack(sub, self._pad(len(sub)))
                 else:
                     packed = self._pack_lanes(self._prep_lanes(sub))
-            self.stats["lane_prep_s"] += time.perf_counter() - t0
             with self.phases("dispatch"):
                 pending.append((start, len(sub), self._launch(packed, len(sub))))
         return checks, pending
@@ -443,11 +439,10 @@ class TorchSecpVerifier:
             out[start : start + count] = ok
             # Exceptional group-law lanes (crafted scalar collisions): the
             # fast device adds deferred them; resolve exactly on the host.
-            t0 = time.perf_counter()
-            for i in np.nonzero(needs)[0]:
-                out[start + int(i)] = self._host_check(checks[start + int(i)])
-                self.stats["fixups"] += 1
-            self.stats["fixup_s"] += time.perf_counter() - t0
+            with accumulate(self.stats, "fixup_s"):
+                for i in np.nonzero(needs)[0]:
+                    out[start + int(i)] = self._host_check(checks[start + int(i)])
+                    self.stats["fixups"] += 1
         return out
 
     def dispatch_lanes(self, args, n: int) -> _Pending:

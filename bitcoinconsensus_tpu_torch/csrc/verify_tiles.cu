@@ -60,7 +60,15 @@
 //
 // Built by `ops/_build.py` with nvcc into a shared library whose C entry
 // point `vt_verify_tiles` launches on the caller's stream and returns
-// cudaGetLastError(); `vt_field_op` runs the field layer alone.
+// cudaGetLastError(); `vt_field_op` runs the field layer alone and
+// `vt_recode` the scalar recoder alone.
+//
+// Schedule hooks (`VT_TRACE`). A host build may define VT_TRACE(ev, a, b, c,
+// d) before including this file (`csrc/verify_tiles_host.cpp`): the lane
+// program then reports each doubling, mixed add and join, each doubling it
+// skips while R is infinity, each digit with its effective sign, and each P-
+// and G-table read, from which `analysis/scalar_check.py` builds its weight
+// ledger. Everywhere else, and always under nvcc, a hook is nothing.
 
 #include <stddef.h>
 #include <stdint.h>
@@ -71,6 +79,8 @@
 #define VT_CONST __constant__ const
 #define VT_UNROLL _Pragma("unroll")
 #define VT_ROLLED _Pragma("unroll 1")
+#undef VT_TRACE
+#define VT_TRACE(ev, a, b, c, d) ((void)0)
 #else
 // Host build of the lane program, for checking its arithmetic without a
 // card: a C++ compiler sees plain inline functions.
@@ -78,7 +88,22 @@
 #define VT_CONST static const
 #define VT_UNROLL
 #define VT_ROLLED
+#ifndef VT_TRACE
+#define VT_TRACE(ev, a, b, c, d) ((void)0)
 #endif
+#endif
+
+// Hook events (arguments a, b, c, d; unused ones 0).
+#define VT_EV_DOUBLE 1        // pt_double
+#define VT_EV_MADD 2          // pt_madd_flagged
+#define VT_EV_JOIN 3          // pt_add_flagged
+#define VT_EV_TABLE_ROW 4     // P table: a = entry k (holds (k+1)·P), b = slot
+#define VT_EV_WINDOW 5        // signed window loop: a = iteration, b = window
+#define VT_EV_SKIP_DOUBLES 6  // a = doublings skipped, b = R is infinity
+#define VT_EV_DIGIT 7         // a = half, b = window, c = |digit|, d = sign
+#define VT_EV_PREAD 8         // P table read: a = half, b = window, c = slot
+#define VT_EV_GWINDOW 9       // G window loop: a = window, b = digit
+#define VT_EV_GREAD 10        // G table read: a = window, b = row
 
 struct fe {
   uint32_t v[8];  // little-endian words; a value in [0, 2^256), lazily mod p
@@ -96,6 +121,7 @@ VT_CONST uint32_t VT_BETA[8] = {0x719501EEu, 0xC1396C28u, 0x12F58995u, 0x9CF0497
                                 0xAC3434E9u, 0x6E64479Eu, 0x657C0710u, 0x7AE96A2Bu};
 
 #define VT_SGLV_WINDOWS 26
+#define VT_SGLV_WIDTH 5
 #define VT_G_WINDOWS 32
 #define VT_G_ENTRIES 255
 #define VT_THREADS 64
@@ -731,6 +757,7 @@ VT_FN pt pt_inf() {
 
 // dbl-2009-l (a = 0).
 VT_FN pt pt_double(const pt& p) {
+  VT_TRACE(VT_EV_DOUBLE, 0, 0, 0, 0);
   fe A = fe_sqr(p.X);
   fe B = fe_sqr(p.Y);
   fe C = fe_sqr(B);
@@ -776,6 +803,7 @@ VT_FN pt pt_madd_core(const pt& p, const fe& x2, const fe& y2, bool& h_zero,
 // into `needs` (only when R was finite).
 VT_FN void pt_madd_flagged(pt& R, bool& inf, const fe& x2, const fe& y2,
                            bool& needs) {
+  VT_TRACE(VT_EV_MADD, 0, 0, 0, 0);
   if (inf) {
     R.X = x2;
     R.Y = y2;
@@ -793,6 +821,7 @@ VT_FN void pt_madd_flagged(pt& R, bool& inf, const fe& x2, const fe& y2,
 // The flagged join R1 + R2 (add-2007-bl) with both infinity flags.
 VT_FN void pt_add_flagged(pt& R, bool& inf1, const pt& Q, bool inf2,
                           bool& needs) {
+  VT_TRACE(VT_EV_JOIN, 0, 0, 0, 0);
   if (inf2) return;  // result R1, infinity flag unchanged
   if (inf1) {
     R = Q;
@@ -867,13 +896,17 @@ VT_FN uint32_t signed_digit(const u128& b, uint32_t carries, int w,
 
 // ---------------------------------------------------------------------------
 // One lane. `w` points at the lane's 32 packed words: a, |b1|‖|b2|, px, t1
-// (each 8 little-endian words). gtab: (32, 255, 2, 8) canonical affine words.
+// (each 8 little-endian words). gtab: (32, 255, 2, 8) canonical affine words;
+// row d - 1 of window i holds d·256^i·G.
+
+VT_FN size_t gtab_offset(int i, int d) {
+  return ((size_t)(i * VT_G_ENTRIES + d - 1) * 2) * 8;
+}
 
 #ifdef __CUDACC__
 VT_FN void gtab_entry(const uint32_t* __restrict__ gtab, int i, int d, fe& gx,
                       fe& gy) {
-  const uint4* e = reinterpret_cast<const uint4*>(
-      gtab + ((size_t)(i * VT_G_ENTRIES + d - 1) * 2) * 8);
+  const uint4* e = reinterpret_cast<const uint4*>(gtab + gtab_offset(i, d));
   uint4 q0 = __ldg(e), q1 = __ldg(e + 1), q2 = __ldg(e + 2), q3 = __ldg(e + 3);
   gx.v[0] = q0.x; gx.v[1] = q0.y; gx.v[2] = q0.z; gx.v[3] = q0.w;
   gx.v[4] = q1.x; gx.v[5] = q1.y; gx.v[6] = q1.z; gx.v[7] = q1.w;
@@ -882,7 +915,9 @@ VT_FN void gtab_entry(const uint32_t* __restrict__ gtab, int i, int d, fe& gx,
 }
 #else
 VT_FN void gtab_entry(const uint32_t* gtab, int i, int d, fe& gx, fe& gy) {
-  const uint32_t* e = gtab + ((size_t)(i * VT_G_ENTRIES + d - 1) * 2) * 8;
+  VT_TRACE(VT_EV_GREAD, gtab_offset(i, d) / 16 / VT_G_ENTRIES,
+           gtab_offset(i, d) / 16 % VT_G_ENTRIES, 0, 0);
+  const uint32_t* e = gtab + gtab_offset(i, d);
   gx = fe_from(e);
   gy = fe_from(e + 8);
 }
@@ -912,6 +947,7 @@ VT_FN void verify_lane_slots(const uint32_t* w, int32_t want_odd,
 
   // -- {1..16}·P at one global Z, in the shared slots -------------------------
   bool needs = false;
+  VT_TRACE(VT_EV_TABLE_ROW, 0, 0, 0, 0);
   slot_put(s, 0, x);
   slot_put(s, 1, y);
   slot_put(s, VT_RATIO_SLOT(1), fe_mul_int(y, 2));  // Z_1 = 2·y·Z_0, Z_0 = 1
@@ -920,6 +956,7 @@ VT_FN void verify_lane_slots(const uint32_t* w, int32_t want_odd,
   R.Y = y;
   R.Z = fe_small(1);
   R = pt_double(R);
+  VT_TRACE(VT_EV_TABLE_ROW, 1, 2, 0, 0);
   slot_put(s, 2, R.X);
   slot_put(s, 3, R.Y);
   VT_ROLLED for (int k = 2; k < 16; k++) {
@@ -927,6 +964,7 @@ VT_FN void verify_lane_slots(const uint32_t* w, int32_t want_odd,
     fe ratio;
     R = pt_madd_core(R, x, y, h0, r0, ratio);
     needs = needs || (h0 && r0);
+    VT_TRACE(VT_EV_TABLE_ROW, k, 2 * k, 0, 0);
     slot_put(s, 2 * k, R.X);
     slot_put(s, 2 * k + 1, R.Y);
     slot_put(s, VT_RATIO_SLOT(k), ratio);
@@ -947,18 +985,25 @@ VT_FN void verify_lane_slots(const uint32_t* w, int32_t want_odd,
   R = pt_inf();
   VT_ROLLED for (int i = 0; i < VT_SGLV_WINDOWS; i++) {
     int wdw = VT_SGLV_WINDOWS - 1 - i;
+    VT_TRACE(VT_EV_WINDOW, i, wdw, 0, 0);
     if (!r_inf) {  // doublings of infinity stay infinity
-      VT_ROLLED for (int k = 0; k < 5; k++) R = pt_double(R);
+      VT_ROLLED for (int k = 0; k < VT_SGLV_WIDTH; k++) R = pt_double(R);
+    } else {
+      VT_TRACE(VT_EV_SKIP_DOUBLES, VT_SGLV_WIDTH, r_inf, 0, 0);
     }
     // The b1 half, then the λ·b2 half: one mixed add each.
     VT_ROLLED for (int h = 0; h < 2; h++) {
       uint32_t sgn;
       uint32_t d = h ? signed_digit(b2, c2, wdw, sgn) : signed_digit(b1, c1, wdw, sgn);
+      uint32_t neg = sgn ^ (uint32_t)(h ? neg2 : neg1);
+      VT_TRACE(VT_EV_DIGIT, h, wdw, (int)d, (int)neg);
       if (d > 0) {
-        fe sx = slot_get(s, 2 * (d - 1));
-        fe sy = slot_get(s, 2 * (d - 1) + 1);
+        int slot = 2 * (d - 1);
+        VT_TRACE(VT_EV_PREAD, h, wdw, slot, 0);
+        fe sx = slot_get(s, slot);
+        fe sy = slot_get(s, slot + 1);
         if (h) sx = fe_mul(sx, fe_from(VT_BETA));  // λ·(x, y) = (β·x, y)
-        if ((sgn ^ (uint32_t)(h ? neg2 : neg1)) == 1u) sy = fe_neg(sy);
+        if (neg == 1u) sy = fe_neg(sy);
         pt_madd_flagged(R, r_inf, sx, sy, needs);
       }
     }
@@ -975,6 +1020,7 @@ VT_FN void verify_lane_slots(const uint32_t* w, int32_t want_odd,
     int da = (int)(a.v[0] & 0xFFu);
     VT_UNROLL for (int j = 0; j < 7; j++) a.v[j] = (a.v[j] >> 8) | (a.v[j + 1] << 24);
     a.v[7] >>= 8;
+    VT_TRACE(VT_EV_GWINDOW, i, da, 0, 0);
     if (da > 0) {
       fe gx, gy;
       gtab_entry(gtab, i, da, gx, gy);
@@ -1104,6 +1150,34 @@ extern "C" int vt_field_op(const int64_t* a) {
     vt_field_kernel<<<(n + 127) / 128, 128, 0, (cudaStream_t)VT_PTR(a, 6)>>>(
         (int)a[0], (const uint32_t*)VT_PTR(a, 1), (const uint32_t*)VT_PTR(a, 2),
         (uint32_t)a[3], (uint32_t*)VT_PTR(a, 4), n);
+  return (int)cudaGetLastError();
+}
+
+// The lane program's recoder alone: one thread per value, the same
+// `signed_carries` / `signed_digit` calls as `verify_lane_slots`.
+__global__ void vt_recode_kernel(const uint32_t* __restrict__ words,
+                                 int32_t* __restrict__ mag,
+                                 int32_t* __restrict__ sgn, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const uint32_t* w = words + 4 * (size_t)i;
+  const u128 b = {w[0], w[1], w[2], w[3]};
+  const uint32_t carries = signed_carries(b);
+  VT_UNROLL for (int wdw = 0; wdw < VT_SGLV_WINDOWS; wdw++) {
+    uint32_t neg;
+    mag[VT_SGLV_WINDOWS * (size_t)i + wdw] = (int32_t)signed_digit(b, carries, wdw, neg);
+    sgn[VT_SGLV_WINDOWS * (size_t)i + wdw] = (int32_t)neg;
+  }
+}
+
+// (n, 4) words of values below 2^128 -> (n, 26) digit magnitudes and signs.
+// Arguments: words, mag, sgn, n, stream.
+extern "C" int vt_recode(const int64_t* a) {
+  int n = (int)a[3];
+  if (n > 0)
+    vt_recode_kernel<<<(n + 127) / 128, 128, 0, (cudaStream_t)VT_PTR(a, 4)>>>(
+        (const uint32_t*)VT_PTR(a, 0), (int32_t*)VT_PTR(a, 1),
+        (int32_t*)VT_PTR(a, 2), n);
   return (int)cudaGetLastError();
 }
 

@@ -42,7 +42,6 @@ raises; it is not retried on the host.
 from __future__ import annotations
 
 import os
-import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -59,6 +58,7 @@ from ..core.tx import Tx, TxOut
 from ..crypto.torch_backend import SigCheck, TorchSecpVerifier, default_verifier
 from ..native_bridge import NativeSession, NativeTx
 from ..utils.gcpause import gc_paused
+from ..utils.profiling import accumulate
 from .sigcache import (
     ScriptExecutionCache,
     SigCache,
@@ -599,10 +599,8 @@ def _dispatch_uniq(nsess, verifier, sig_cache, state: _UniqState):
     cap = verifier.lane_capacity
     for s in range(0, len(miss), cap):
         sub = miss[s : s + cap]
-        t0 = time.perf_counter()
-        with verifier.phases("host_prep"):
+        with accumulate(verifier.stats, "lane_prep_s"), verifier.phases("host_prep"):
             lanes = nsess.uniq_lanes(sub, verifier.pad(len(sub)))
-        verifier.stats["lane_prep_s"] += time.perf_counter() - t0
         pending.append((verifier.dispatch_lanes(lanes, len(sub)), sub))
     return grow, keys, pending
 
@@ -621,11 +619,10 @@ def _settle_uniq(nsess, verifier, sig_cache, state: _UniqState, round_rec) -> No
         okv = okv.copy()
         fix = np.nonzero(needs)[0]
         if len(fix):
-            t0 = time.perf_counter()
-            for t in fix:
-                okv[t] = nsess.uniq_host_verify(int(sub[t]))
-            verifier.stats["fixups"] += len(fix)
-            verifier.stats["fixup_s"] += time.perf_counter() - t0
+            with accumulate(verifier.stats, "fixup_s"):
+                for t in fix:
+                    okv[t] = nsess.uniq_host_verify(int(sub[t]))
+                verifier.stats["fixups"] += len(fix)
         state.val[sub] = okv
         for t in np.nonzero(okv)[0]:  # success-only, like the reference
             sig_cache.add_key(keys[int(sub[t]) - lo])

@@ -10,6 +10,10 @@ flags of the reference's `native/Makefile`, its warnings left out:
 
     g++ -O3 -std=c++17 -fPIC -shared csrc/native/nat.cpp
 
+and so is the host build of the verify kernel's lane program
+(`csrc/verify_tiles_host.cpp`, which includes `verify_tiles.cu`; the name
+`verify_tiles_host`), which the scalar-schedule prover runs.
+
 A library lands in `build/torch_kernels/` at the root of the checkout,
 named by a hash of its sources and flags (all seven of the host core's, so
 a changed header rebuilds too), and an unchanged one loads at once. The
@@ -46,6 +50,7 @@ HOST_CORE = "nat"
 HOST_CORE_SOURCES = ("nat.cpp", "secp.hpp", "sha256.hpp", "hash_extra.hpp",
                      "interp.hpp", "eval.hpp", "block.hpp")
 GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
+VT_HOST = "verify_tiles_host"
 
 
 @dataclass(frozen=True)
@@ -83,12 +88,15 @@ def _recipe(name: str) -> Tuple[Callable[[], str], Sequence[str], List[Path]]:
     """(compiler lookup, flags, sources: the compiled one first)."""
     if name == HOST_CORE:
         return _gxx, GXX_FLAGS, [CSRC / "native" / s for s in HOST_CORE_SOURCES]
+    if name == VT_HOST:
+        return _gxx, GXX_FLAGS, [CSRC / f"{VT_HOST}.cpp", CSRC / "verify_tiles.cu"]
     return _nvcc, NVCC_FLAGS, [CSRC / f"{name}.cu"]
 
 
 def build(name: str) -> Built:
-    """Compile `csrc/<name>.cu` (or the host core, `nat`) unless a library
-    of the same source hash is already in the build directory."""
+    """Compile `csrc/<name>.cu` (or a g++ source: the host core, `nat`, or
+    `verify_tiles_host`) unless a library of the same source hash is already
+    in the build directory."""
     with _lock:
         name_lock = _name_locks.setdefault(name, threading.Lock())
     with name_lock:
@@ -138,8 +146,8 @@ def build(name: str) -> Built:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu` (or of the host core, `nat`),
-    built at first use."""
+    """The loaded library of `csrc/<name>.cu` (or of a g++ source), built at
+    first use."""
     built = build(name)
     with _lock:
         if name not in _libs:

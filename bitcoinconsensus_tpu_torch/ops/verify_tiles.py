@@ -16,6 +16,10 @@ Three pieces live here:
 - The preamble (`_signed_digits128`, t1 + n), shared with the plain version;
   the CUDA kernel does the same per lane.
 
+Two probes run pieces of the kernel's own device code alone: `field_op`
+(its field layer, `vt_field_op`) and `recode` (its signed recoder,
+`vt_recode`), each against its plain version on the CPU.
+
 Inputs are the verifier's packed 7-tuple: `fields` (B, 4, 32) uint8
 little-endian (a, |b1|‖|b2|, px, t1), then int32 (B,) `want_odd`,
 `parity_req`, `has_t2`, `neg1`, `neg2` and bool (B,) `valid`. Outputs are
@@ -70,7 +74,7 @@ from .limbs import (
 )
 
 __all__ = ["verify_tiles", "verify_tiles_reference", "VERIFY_TILES_CONTRACT",
-           "SGLV_WINDOWS", "SGLV_WIDTH"]
+           "SGLV_WINDOWS", "SGLV_WIDTH", "field_op", "recode"]
 
 # Signed 5-bit windows over the 128-bit GLV halves: 26 windows of
 # (5 doublings + 2 mixed adds); digits in [-16, 15], table {1..16}·P.
@@ -413,6 +417,35 @@ def field_op(op: str, a: torch.Tensor, b: torch.Tensor, k: int = 0) -> torch.Ten
     launch.call(fn, a.get_device(), FIELD_OPS.index(op), a.data_ptr(),
                 b.data_ptr(), k, out.data_ptr(), a.shape[0])
     return out
+
+
+def words_to_limbs10(words: torch.Tensor) -> torch.Tensor:
+    """(n, 4) int32 little-endian words of values below 2^128 -> (10, n)
+    13-bit limbs, the layout `_signed_digits128` takes."""
+    u8 = words.contiguous().view(torch.uint8).reshape(-1, 16)
+    return bytes_to_limbs(u8, nlimb=10)
+
+
+def recode(words: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's signed recoder alone: (n, 4) int32 words of values below
+    2^128 -> ((n, 26) |digit|, (n, 26) sign) int32, digit w of window w.
+    CUDA tensors run `vt_recode` (the `signed_carries` / `signed_digit` the
+    verify kernel inlines); CPU tensors run `_signed_digits128`."""
+    if words.dtype != torch.int32 or words.dim() != 2 or words.shape[1] != 4 \
+            or not words.is_contiguous():
+        raise ValueError("recode takes contiguous (n, 4) int32 words")
+    if not words.is_cuda:
+        if words.device.type != "cpu":
+            raise ValueError(f"recode runs on CUDA or the CPU, not {words.device}")
+        mag, sgn = _signed_digits128(words_to_limbs10(words))
+        return mag.T.contiguous(), sgn.T.contiguous()
+    fn = launch.bind("verify_tiles", "vt_recode")
+    mag = torch.empty((words.shape[0], SGLV_WINDOWS), dtype=torch.int32,
+                      device=words.device)
+    sgn = torch.empty_like(mag)
+    launch.call(fn, words.get_device(), words.data_ptr(), mag.data_ptr(),
+                sgn.data_ptr(), words.shape[0])
+    return mag, sgn
 
 
 def verify_tiles(fields, want_odd, parity_req, has_t2, neg1, neg2, valid):

@@ -1,14 +1,19 @@
-"""Per-phase wall-clock timers.
+"""Per-phase wall-clock timers: the port's one sanctioned clock reader.
 
 A port of `Phases` from `bitcoinconsensus_tpu/utils/profiling.py` without
 its telemetry spans (the port has no `obs/` yet): each phase accumulates
 its seconds and calls on the instance, under a lock, because the batch
-drivers' phases may be entered from more than one thread.
+drivers' phases may be entered from more than one thread. `accumulate`
+adds a block's seconds to one key of a stats dict. Host code of `core/`,
+`models/` and `crypto/` reads no clock of its own (`analysis/host_lint.py`,
+the `time` rule).
 
     ph = Phases()
     with ph("host_prep"):
         ...
     ph.report()  # {"host_prep": {"secs": ..., "calls": ...}, ...}
+    with accumulate(stats, "lane_prep_s"):
+        ...
 
 `Phases(enabled=False)` turns them into no-ops.
 """
@@ -20,7 +25,16 @@ import time
 from contextlib import contextmanager
 from typing import Dict
 
-__all__ = ["Phases"]
+__all__ = ["Phases", "accumulate"]
+
+
+@contextmanager
+def accumulate(stats, key: str):
+    """Add the block's wall-clock seconds to `stats[key]` when it exits
+    normally (a block that raises adds nothing)."""
+    t0 = time.perf_counter()
+    yield
+    stats[key] += time.perf_counter() - t0
 
 
 class Phases:

@@ -6,10 +6,11 @@
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. The card: nvidia-smi name and power limit, torch and CUDA versions.
-2. Build every kernel from `bitcoinconsensus_tpu_torch/csrc` with nvcc and
-   the native host core (`csrc/native/`) with g++, one process per source,
-   all started together; print each build time and the ptxas registers and
-   spills.
+2. Build every kernel from `bitcoinconsensus_tpu_torch/csrc` with nvcc, and
+   the native host core (`csrc/native/`) and the host build of the verify
+   kernel's lane program (`csrc/verify_tiles_host.cpp`, for the scalar
+   prover) with g++, one process per source, all started together; print
+   each build time and the ptxas registers and spills.
 3. Main path: 10,000 seeded inputs in the replay mix (55% p2wpkh, 20% p2tr,
    15% p2pkh, 10% p2wsh 2-of-3; about 1% carry a corrupted signature) go
    through one `verify_batch` on cuda:0 on the native host engine in index
@@ -52,14 +53,21 @@ Phases, each printing its own lines; any failure exits non-zero:
    these inputs. Every launch takes the contract's dynamic shared bytes,
    which the C launcher refuses unless they are the kernel's. Then its
    field layer alone against the integer model on edge and seeded operands,
-   and a width sweep: kernel ms at 64, 4,908, 8,192 and 32,768 lanes (the
+   its signed recoder alone (`vt_recode`, `[recode]`) on the carry
+   automaton's 1,584 lanes, 32,768 seeded 128-bit values and the edges (0,
+   2^128 - 1, each 16·32^w boundary) against the plain torch recoder, the
+   `.cu`'s own recoder built with g++ and an independent Python recoder
+   (signed digits, tolerance 0, with the kernel's ms), and a width sweep: kernel ms at 64, 4,908, 8,192 and 32,768 lanes (the
    panel tiled), each compared with the plain version on a sample of lanes,
    with the SM clock and power draw read while it runs back to back.
 5. The kernel prover (`analysis/registry.py`), after the main path so that
    its tracing leaves the main path's timing alone: every non-heavy entry
    must prove, `verify_tiles`'s launch contract included (8,192 and 4,908
    lanes); the positive toy must prove and each planted defect be rejected
-   with its kind.
+   with its kind. Then the scalar-schedule prover: every schedule target
+   (the two ladder ledgers and the G-table certificate included; the carry
+   automaton drives `vt_recode` on the card) must be a THEOREM, and each
+   `scalar-*` negative must be rejected.
 6. The toys, each through its wrapper on cuda:0 once (launch counts read
    around this drive alone) on seeded inputs inside its declared bounds:
    positive (8, 256), mul (20, 256) W2-bounded limbs, the three float32
@@ -306,7 +314,8 @@ def _device_ms(fn, reps, kernel: str):
 
 def _prover() -> None:
     """Every non-heavy registry entry proves; the positive toy proves and
-    every planted defect is rejected with its kind."""
+    every planted defect is rejected with its kind; every scalar-schedule
+    target is a THEOREM and every scalar negative is rejected."""
     from bitcoinconsensus_tpu_torch.analysis import kernel_check as K
     from bitcoinconsensus_tpu_torch.analysis import registry
 
@@ -336,6 +345,26 @@ def _prover() -> None:
               seconds=f"{time.perf_counter() - t0:.2f}")
         if not rejected:
             bad.append(f"negative {name} not rejected with {kind}: {kinds}")
+    from bitcoinconsensus_tpu_torch.analysis import scalar_check as SC
+
+    t_leg = time.perf_counter()
+    for spec in registry.all_schedules():
+        t0 = time.perf_counter()
+        cert = spec.certify()
+        _line("prover", schedule=spec.name, status=cert.status,
+              facts=",".join(sorted(cert.facts)),
+              seconds=f"{time.perf_counter() - t0:.2f}")
+        if not cert.ok:
+            bad.append(f"{spec.name}: {cert.status} {cert.failures[:2]}")
+    for name in sorted(SC.NEGATIVES):
+        t0 = time.perf_counter()
+        rep = SC.analyze_negative(name)
+        rejected = not rep.ok and any(v.kind == "schedule" for v in rep.violations)
+        _line("prover", entry=f"negative.{name}", rejected=rejected,
+              want="schedule", seconds=f"{time.perf_counter() - t0:.2f}")
+        if not rejected:
+            bad.append(f"scalar negative {name} not rejected")
+    _line("prover", schedule_leg_seconds=f"{time.perf_counter() - t_leg:.2f}")
     if bad:
         _fail("kernel prover: " + "; ".join(bad))
 
@@ -384,6 +413,45 @@ def _field_check(VT, device, rng):
         want = VT.field_op(op, aw, bw, k)
         bad += int((got != want).sum())
     return len(a), bad
+
+
+def _recode_check(VT, device, rng, card: str, rehearse: bool) -> None:
+    """The kernel's signed recoder alone (`vt_recode` on the card) on the
+    carry automaton's lanes, seeded values and the edges, against the plain
+    torch recoder, the `.cu`'s recoder built with g++ and the prover's
+    independent Python recoder: signed digits, tolerance 0."""
+    import numpy as np
+    import torch
+
+    from bitcoinconsensus_tpu_torch.analysis import scalar_check as SC
+
+    t_phase = time.perf_counter()
+    auto = [x for x, _, _, _ in SC.automaton_lanes()]
+    n_rand = 256 if rehearse else 32_768
+    rand = [int.from_bytes(rng.bytes(16), "little") for _ in range(n_rand)]
+    edges = [0, (1 << 128) - 1] + [v for w in range(26) for v in
+                                   (16 * 32 ** w - 1, 16 * 32 ** w)
+                                   if v < 1 << 128]
+    xs = auto + rand + edges
+    words = SC.values_to_words(xs)
+    dev = torch.from_numpy(words).to(device)
+    mag, sgn = VT.recode(dev)
+    got = SC.signed_digits(mag.cpu().numpy(), sgn.cpu().numpy())
+    plain = SC.signed_digits(*(t.numpy() for t in VT.recode(torch.from_numpy(words))))
+    t0 = time.perf_counter()
+    host = SC.signed_digits(*SC.host_recode(words))
+    host_s = time.perf_counter() - t0
+    ref = np.array([SC._ref_signed_recode(x) for x in xs], dtype=np.int64)
+    diff = {k: int((got != v).any(axis=1).sum())
+            for k, v in (("plain", plain), ("host_build", host), ("python", ref))}
+    ms = _timed(lambda: VT.recode(dev), 1 if rehearse else 20, device)
+    _line("recode", values=len(xs), automaton=len(auto), random=n_rand,
+          edges=len(edges), tolerance=0,
+          **{f"differing_{k}": v for k, v in diff.items()},
+          kernel_ms=f"{ms:.5f}", host_recode_s=f"{host_s:.4f}",
+          seconds=f"{time.perf_counter() - t_phase:.2f}", card=json.dumps(card))
+    if any(diff.values()):
+        _fail(f"the kernel's recoder disagrees: {diff}")
 
 
 def _signed_mags(v: int):
@@ -783,11 +851,12 @@ def main() -> int:
     if not rehearse:
         from concurrent.futures import ThreadPoolExecutor
 
-        sources = ("verify_tiles", "toy_kernels", _build.HOST_CORE)
+        sources = ("verify_tiles", "toy_kernels", _build.HOST_CORE, _build.VT_HOST)
         with ThreadPoolExecutor(len(sources)) as pool:
             builds = list(pool.map(_build.build, sources))
         for name, built in zip(sources, builds):
-            what = dict(name=name) if name == _build.HOST_CORE else dict(kernel=name)
+            what = dict(kernel=name) if name in ("verify_tiles", "toy_kernels") \
+                else dict(name=name)
             _line("build", **what, seconds=f"{built.seconds:.2f}",
                   library=os.path.relpath(built.path, HERE))
             for ln in built.log.splitlines():
@@ -998,6 +1067,8 @@ def main() -> int:
         _line("field", operands=n_ops, ops=8, tolerance=0, words_differing=bad_words)
         if bad_words:
             _fail("the kernel's field layer disagrees with the integer model")
+    _recode_check(VT, device, np.random.default_rng([args.seed, 8]), card,
+                  rehearse)
 
     # Width sweep: the panel tiled to the widest width; each width's kernel
     # result is compared with the plain version on a sample of its lanes.

@@ -198,6 +198,32 @@ def test_field_layer_on_cuda_matches_integer_model(op, k):
 
 
 @pytest.mark.gpu
+def test_recode_on_cuda_matches_plain_version_on_automaton_lanes():
+    _need_cuda()
+    from bitcoinconsensus_tpu_torch.analysis import scalar_check as SC
+
+    xs = [x for x, _, _, _ in SC.automaton_lanes()] + [0, (1 << 128) - 1]
+    words = torch.from_numpy(SC.values_to_words(xs))
+    mag, sgn = VT.recode(words.cuda())
+    assert mag.is_cuda and mag.shape == (len(xs), VT.SGLV_WINDOWS)
+    pmag, psgn = VT.recode(words)
+    assert torch.equal(mag.cpu(), pmag)
+    np.testing.assert_array_equal(
+        SC.signed_digits(mag.cpu().numpy(), sgn.cpu().numpy()),
+        SC.signed_digits(pmag.numpy(), psgn.numpy()))
+
+
+@pytest.mark.gpu
+def test_carry_automaton_drives_the_kernel_recoder_on_cuda():
+    _need_cuda()
+    from bitcoinconsensus_tpu_torch.analysis import scalar_check as SC
+
+    cert = SC.certify("scalar._signed_digits128")
+    assert cert.status == "THEOREM", cert.failures
+    assert cert.facts["cuda_enumeration"]["lanes"] == 1584
+
+
+@pytest.mark.gpu
 def test_toy_positive_lean_path_counts_and_checks():
     _need_cuda()
     x = torch.arange(8 * 256, dtype=torch.int32).reshape(8, 256).cuda()

@@ -1,5 +1,6 @@
 """Package rules of the port: it imports neither jax nor the JAX package,
-runs with jax unavailable, and its entry points default to the card."""
+runs with jax unavailable, its entry points default to the card, and it
+exports the reference's public surface (held to the JAX package's here)."""
 
 import ast
 import os
@@ -10,6 +11,8 @@ import textwrap
 import pytest
 import torch
 
+import bitcoinconsensus_tpu
+import bitcoinconsensus_tpu_torch
 from bitcoinconsensus_tpu_torch.crypto.torch_backend import TorchSecpVerifier
 from bitcoinconsensus_tpu_torch.ops import verify_tiles as VT
 
@@ -47,6 +50,48 @@ def test_walk_covers_the_block_and_index_mode_modules():
                 "core/tx_check.py", "utils/profiling.py", "utils/blockgen.py",
                 "native_bridge.py", "crypto/torch_backend.py"):
         assert os.path.join("bitcoinconsensus_tpu_torch", mod) in rel
+
+
+def test_walk_covers_the_surface_and_analysis_modules():
+    rel = {os.path.relpath(p, REPO) for p in _sources()}
+    for mod in ("api.py", "crypto/recovery.py", "crypto/bip32.py",
+                "analysis/scalar_check.py", "analysis/host_lint.py",
+                "analysis/registry.py", "analysis/lint.py"):
+        assert os.path.join("bitcoinconsensus_tpu_torch", mod) in rel
+
+
+def test_all_covers_the_reference_surface():
+    missing = set(bitcoinconsensus_tpu.__all__) - set(bitcoinconsensus_tpu_torch.__all__)
+    assert not missing, missing
+    for name in bitcoinconsensus_tpu_torch.__all__:
+        assert hasattr(bitcoinconsensus_tpu_torch, name), name
+
+
+def test_version_and_flag_constants_equal_the_reference():
+    port, ref = bitcoinconsensus_tpu_torch, bitcoinconsensus_tpu
+    assert port.version() == ref.version() == 1
+    assert port.api.API_VERSION == ref.api.API_VERSION
+    assert port.VERIFY_ALL_LIBCONSENSUS == ref.VERIFY_ALL_LIBCONSENSUS
+    assert port.VERIFY_ALL_EXTENDED == ref.VERIFY_ALL_EXTENDED
+    assert port.flags.__all__ == ref.flags.__all__
+    consts = [n for n in ref.flags.__all__ if n != "height_to_flags"]
+    assert [getattr(port.flags, n) for n in consts] == \
+        [getattr(ref.flags, n) for n in consts]
+
+
+def _heights():
+    from bitcoinconsensus_tpu_torch.core import flags as F
+
+    acts = [F.HEIGHT_P2SH, F.HEIGHT_DERSIG, F.HEIGHT_CLTV, F.HEIGHT_CSV,
+            F.HEIGHT_SEGWIT, F.HEIGHT_TAPROOT]
+    return sorted({0, 710_000, 2**31 - 1} | {h + d for h in acts for d in (-1, 0, 1)})
+
+
+@pytest.mark.parametrize("extended", [False, True])
+def test_height_to_flags_equals_the_reference(extended):
+    for h in _heights():
+        assert bitcoinconsensus_tpu_torch.height_to_flags(h, extended) == \
+            bitcoinconsensus_tpu.height_to_flags(h, extended), h
 
 
 def test_runs_with_jax_unavailable():
