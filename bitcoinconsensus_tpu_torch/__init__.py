@@ -11,13 +11,18 @@ Layout (the JAX package's names, so each counterpart is easy to find):
 - ``crypto``  — secp256k1 host oracle, GLV split, the batched verifier
                 and its asynchronous seams, compact-signature recovery
                 and BIP32 public derivation
-- ``ops``     — field and group ops as torch ops, the verify kernel's
-                wrapper and plain version, the nvcc and g++ builds
+- ``ops``     — field and group ops as torch ops, the verify and
+                checksum kernels' wrappers and plain versions, the nvcc and
+                g++ builds
 - ``csrc``    — CUDA sources, and the native host core (``csrc/native``)
 - ``native_bridge`` — ctypes surface of the native host core, its
                 index-mode session and its block and coins-view handles
 - ``models``  — `verify_batch`, `verify_batch_stream`, `connect_block`
                 and the caches
+- ``resilience`` — the guards every dispatch settles through (sentinel
+                lanes, the device verdict checksum, validation), the
+                in-flight queue with its retry budget, the fault-injection
+                harness and the sig-cache audit
 - ``utils``   — hashing, phase timers, synthetic spends and blocks for
                 tests and chip_smoke.py
 - ``analysis`` — the kernel prover, the scalar-schedule prover and the
@@ -45,6 +50,7 @@ from .api import (
     verify_with_spent_outputs,
     version,
 )
+from . import resilience
 from .core import flags
 from .core.script_error import ScriptError
 from .crypto.bip32 import ExtPubKey, pubkey_derive
@@ -82,6 +88,7 @@ __all__ = [
     "SigCheck",
     "TorchSecpVerifier",
     "connect_block",
+    "resilience",
     "verify_batch",
     "verify_batch_stream",
 ]

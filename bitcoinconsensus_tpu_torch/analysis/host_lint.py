@@ -12,18 +12,20 @@ Those modules must be bit-exact, replayable functions of their inputs:
 - no `random` / `secrets` (verdicts must not depend on entropy),
 - no reading clocks (`time.time`, `datetime.now`, `time.perf_counter`, ...).
 
-The clock rule also runs alone over `crypto/`. Until the port has `obs/`,
-the one sanctioned clock reader is `utils/profiling.py` (`Phases`,
-`accumulate`): ad-hoc `time.perf_counter()` pairs must not drift in beside
-it.
+The clock rule also runs alone over `crypto/` and `resilience/`. Until the
+port has `obs/`, the one sanctioned clock reader is `utils/profiling.py`
+(`Phases`, `accumulate`, `monotonic`): ad-hoc `time.perf_counter()` pairs
+must not drift in beside it.
 
-The `sync` rule runs over `crypto/torch_backend.py`, the counterpart of the
-reference's `jax_backend.py`: forcing a device tensor to the host
+The `sync` rule runs over `crypto/torch_backend.py` and
+`resilience/inflight.py`, the counterparts of the reference's
+`jax_backend.py` and `inflight.py`: forcing a device tensor to the host
 (`.cpu()`, `.item()`, `.tolist()`, `.numpy()`, `np.asarray`, `np.array`) or
 waiting for the device (`torch.cuda.synchronize`, an event's
 `.synchronize()`) is a hidden synchronisation point that serialises the
-pipeline. Only the functions of `SYNC_ALLOWED_FUNCS` may, each for the
-reason it states.
+pipeline and passes the guards by. Only the functions of
+`SYNC_ALLOWED_FUNCS` may, each for the reason it states: as in the
+reference, the settle seam `_materialize_guarded` and `settle_array`.
 
 The scalar-coverage rule (`lint_scalar_recoders`) requires every
 recoder-shaped function of `ops/`, `crypto/glv.py` and the `VT_FN`
@@ -33,7 +35,7 @@ prover (`scalar_check.REGISTERED_RECODERS`).
 Rules of the reference that wait: region coverage waits for `ops/regions.py`
 (with `obs/`); the `precision` and `pallas` rules have no torch or CUDA
 counterpart in the port today; the reference's `sync` targets `mesh.py`,
-`inflight.py`, `ingress.py` and `sigstore.py` wait for their modules.
+`ingress.py` and `sigstore.py` wait for their modules.
 
 Pure-AST checks (and a regex scan of the `.cu`): no imports of the scanned
 modules, so a syntax-valid file is lintable even when its dependencies are
@@ -55,10 +57,14 @@ SYNC_RULES = frozenset({"sync"})
 # Functions (qualified names) allowed to synchronise with the device, each
 # with its reason.
 SYNC_ALLOWED_FUNCS: Dict[str, str] = {
-    "TorchSecpVerifier.sync_lanes": "the sanctioned settle seam of a "
-    "`dispatch_lanes` handle",
-    "TorchSecpVerifier._settle": "the one place a dispatch's verdicts reach "
-    "the host; `sync_lanes` and `verify_checks_finish` settle through it",
+    "TorchSecpVerifier._materialize_guarded": "the settle seam: the one "
+    "place a dispatch's verdicts reach the host, waited for once and held "
+    "to the guards before anything reads them",
+    "settle_array": "resilience/inflight.py: the sanctioned device->host "
+    "copy outside the settle seam",
+    "TorchSecpVerifier._prepare_ticket": "host staging: numpy views of the "
+    "host buffers it has just filled, to write the sentinel lanes; no "
+    "device tensor is touched",
     "TorchSecpVerifier.__init__": "set-up, once per verifier before any "
     "dispatch: the warm-up launch is waited for so a verify call's time is "
     "its own",
@@ -149,7 +155,7 @@ class _Visitor(ast.NodeVisitor):
                 self._flag(node, "sync",
                            f"{fn.value.id}.{fn.attr}() on the dispatch path "
                            "forces a hidden device->host copy: settle "
-                           "through sync_lanes / _settle")
+                           "through the settle seam or settle_array")
             elif fn.attr in SYNC_BANNED_METHODS:
                 self._flag(node, "sync",
                            f".{fn.attr}() on the dispatch path waits for the "
@@ -211,13 +217,16 @@ def _pkg(repo_root: str) -> str:
 
 
 def lint_consensus_host(repo_root: str) -> List[LintFinding]:
-    """Full rules over core/ + models/; the clock rule alone over crypto/;
-    the sync rule over the verifier's dispatch path."""
+    """Full rules over core/ + models/; the clock rule alone over crypto/
+    and resilience/; the sync rule over the verifier's dispatch path and the
+    in-flight queue."""
     pkg = _pkg(repo_root)
     findings = lint_paths([os.path.join(pkg, "core"),
                            os.path.join(pkg, "models")])
-    findings += lint_paths([os.path.join(pkg, "crypto")], rules=TIMING_RULES)
-    findings += lint_paths([os.path.join(pkg, "crypto", "torch_backend.py")],
+    findings += lint_paths([os.path.join(pkg, "crypto"),
+                            os.path.join(pkg, "resilience")], rules=TIMING_RULES)
+    findings += lint_paths([os.path.join(pkg, "crypto", "torch_backend.py"),
+                            os.path.join(pkg, "resilience", "inflight.py")],
                            rules=SYNC_RULES)
     return findings
 

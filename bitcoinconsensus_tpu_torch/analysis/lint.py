@@ -162,8 +162,9 @@ def _host() -> int:
     from . import host_lint
 
     repo = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    print("== host lint (core/, models/; clock rule over crypto/; sync rule "
-          "over crypto/torch_backend.py) ==")
+    print("== host lint (core/, models/; clock rule over crypto/ and "
+          "resilience/; sync rule over crypto/torch_backend.py and "
+          "resilience/inflight.py) ==")
     findings = host_lint.lint_consensus_host(repo)
     print("\n== scalar-recoder coverage (ops/, crypto/glv.py, "
           "csrc/verify_tiles.cu) ==")

@@ -11,8 +11,10 @@ by their launch contracts (`analysis/kernel_check.py`).
 
 Entries of the JAX registry the port has no code for yet (`fe_inv`, the
 complete adds, `double_scalar_mult_glv`, `mxu.fe_mul_onehot`, `sha256.*`,
-`jax_backend.*`) are not registered; ROADMAP.md lists them with their
-modules.
+`jax_backend.verify_kernel`) are not registered; ROADMAP.md lists them with
+their modules. The reference's `jax_backend.verdict_checksum` is the port's
+`cuda.verdict_checksum`, the launch contract and body of
+`csrc/verdict_checksum.cu`.
 
 To register a kernel:
 
@@ -39,6 +41,7 @@ import torch
 
 from ..ops import curve as C
 from ..ops import limbs as L
+from ..ops import verdict_checksum as VC
 from ..ops import verify_tiles as VT
 from . import interval, kernel_check
 
@@ -107,6 +110,24 @@ def _verify_tiles_body() -> interval.Report:
         in_bounds=VT_FLAG_BOUNDS, out_within=[[(0, 1)] * 2])
 
 
+# One lane, a full dispatch, and the most lanes the kernel takes, where the
+# weighted sum comes closest to the int32 edge (251 * 2^23 < 2^31).
+VERDICT_CHECKSUM_WIDTHS = (1, 8192, VC.MAX_LANES)
+
+
+def _verdict_checksum() -> interval.Report:
+    rep = interval.Report(name="cuda.verdict_checksum")
+    for B in VERDICT_CHECKSUM_WIDTHS:
+        # count <= B; weighted <= 251 * B (the largest lane weight)
+        kernel_check.check_contract(
+            VC.VERDICT_CHECKSUM_CONTRACT,
+            [interval.TensorSpec((B,), torch.bool)],
+            f"cuda.verdict_checksum[{B}]", in_bounds={0: (0, 1)},
+            out_within=[[(0, B), (0, VC.CHECKSUM_MOD * B)]], report=rep)
+        rep.notes.append(f"contract and body proven at {B} lanes")
+    return rep
+
+
 def _specs() -> List[KernelSpec]:
     w2, canon = w2_rows(), canon_rows()
     return [
@@ -121,6 +142,11 @@ def _specs() -> List[KernelSpec]:
         KernelSpec("cuda.verify_tiles", _verify_tiles_contract,
                    note="launch contract of csrc/verify_tiles.cu at "
                         f"{' and '.join(map(str, VERIFY_TILES_WIDTHS))} lanes"),
+        KernelSpec("cuda.verdict_checksum", _verdict_checksum,
+                   note="launch contract and int32 body of "
+                        "csrc/verdict_checksum.cu at "
+                        f"{', '.join(map(str, VERDICT_CHECKSUM_WIDTHS))} lanes: "
+                        "one block, both sums inside int32"),
         KernelSpec("cuda.verify_tiles.body", _verify_tiles_body, heavy=True,
                    note="interval proof of the plain version "
                         "(verify_tiles_reference, 20x13-bit limbs) on one "

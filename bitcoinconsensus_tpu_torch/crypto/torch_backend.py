@@ -21,10 +21,21 @@ flags `needs_host` (an equal-points case of its fast additions, reached
 only by crafted scalars) are resolved exactly by the host oracle
 `crypto/secp_host.py` (or its native counterpart, `NativeSecp`); that
 fixup is part of the kernel's contract.
+
+Every dispatch is guarded, as in the reference (`resilience/`): it goes
+through the verifier's in-flight queue, which stages the packed lanes,
+writes known-answer sentinel lanes into their pad region, launches the
+verify kernel and then the verdict checksum kernel
+(`ops/verdict_checksum.py`; BITCOINCONSENSUS_TPU_CHECKSUM=0 leaves it out),
+and at settle validates the verdict buffers, the sentinels and the
+checksum before a verdict is returned. A failed guard or launch is
+retried on the same kernel within the budget (`resilience/degrade.py`)
+and then raises `DispatchFailed`; nothing falls back to the host.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 from collections import defaultdict
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -35,7 +46,12 @@ import torch
 from .. import native_bridge
 from ..ops.limbs import P_INT
 from ..ops.curve import G_X
+from ..ops.verdict_checksum import verdict_checksum
 from ..ops.verify_tiles import verify_tiles
+from ..resilience import faults as _faults
+from ..resilience import guards as _guards
+from ..resilience.degrade import DispatchResilience
+from ..resilience.inflight import InflightQueue, Ticket
 from ..utils.gcpause import gc_paused
 from ..utils.hashes import tagged_hash
 from ..utils.profiling import Phases, accumulate
@@ -201,21 +217,19 @@ def _prep_tweak(lane: _Lane, tweaked32: bytes, parity: int, internal32: bytes,
     lane.valid = True
 
 
-class _Pending:
-    """One dispatched chunk, unsynchronised: the kernel's result tensors, the
-    CUDA event pair around its launch (None on the CPU), and the host
-    buffers its upload reads from. The handle holds them until
-    `sync_lanes`, so a pinned buffer is never reused while its copy may
-    still be reading it."""
+class _Launched:
+    """One launch of a ticket, unsynchronised: the host tensors its verdicts
+    land in (pinned, filled by non-blocking copies on a card), the CUDA
+    events around the verify kernel and after the copies (None on the
+    CPU)."""
 
-    __slots__ = ("ok", "needs", "events", "host", "settled")
+    __slots__ = ("ok", "needs", "events", "done")
 
-    def __init__(self, ok, needs, events, host):
+    def __init__(self, ok, needs, events=None, done=None):
         self.ok = ok
         self.needs = needs
         self.events = events
-        self.host = host
-        self.settled = False
+        self.done = done
 
 
 class TorchSecpVerifier:
@@ -235,13 +249,23 @@ class TorchSecpVerifier:
     Two seams, each split into an asynchronous half and a settling half:
     `verify_checks_begin` / `verify_checks_finish` take `SigCheck`s, and
     `dispatch_lanes` / `sync_lanes` take lanes already packed (the index-mode
-    drivers pack them inside the native session). Nothing between a
-    dispatch and its settle synchronises with the device: the upload is a
-    non-blocking copy from pinned memory, the launch goes on the device's
-    current stream, and the results stay on the device until settled.
-    `in_flight` counts the dispatches not yet settled; `phases` times
-    `host_prep`, `dispatch` and `sync` (and the drivers' own phases).
+    drivers pack them inside the native session). Both go through the
+    in-flight queue (`resilience/inflight.py`): a dispatch stages the lanes
+    (pinned on a card), writes the sentinel lanes into the staged pad,
+    uploads with non-blocking copies, launches the verify kernel and the
+    checksum kernel on the device's current stream and queues the copies of
+    the results back, all without waiting; a settle waits once, then holds
+    the padded verdicts to `validate_verdict`, the sentinels and the
+    checksum, retrying a failed dispatch within the budget and then raising
+    `DispatchFailed`. Settling a handle again returns the same verdicts.
+    `in_flight` is the queue's depth: dispatches not yet settled (at most
+    BITCOINCONSENSUS_TPU_INFLIGHT_DEPTH, 4; a deeper one settles the oldest
+    first). A ticket's retries end at BITCOINCONSENSUS_TPU_SETTLE_DEADLINE_S
+    (8.0) seconds after its dispatch. `phases` times `host_prep`,
+    `dispatch` and `sync` (and the drivers' own phases).
     """
+
+    _SITE = "torch_backend"
 
     def __init__(self, device=None, engine: str = "native", min_batch: int = 8,
                  chunk: int = 1 << 13, pad_step: Optional[int] = None):
@@ -265,13 +289,34 @@ class TorchSecpVerifier:
         self.device = torch.device(device)
         self.stats: Dict[str, float] = defaultdict(float)
         self.phases = Phases()
-        self.in_flight = 0
+        # The guards: the device checksum rides every dispatch unless
+        # BITCOINCONSENSUS_TPU_CHECKSUM is 0 or off; the queue's depth bounds
+        # how far a caller runs ahead, its deadline how long a ticket retries.
+        self._checksum = os.environ.get(
+            "BITCOINCONSENSUS_TPU_CHECKSUM", "") not in ("0", "off")
+        self._inflight = InflightQueue(
+            DispatchResilience(), self._SITE, launch=self._launch_ticket,
+            materialize=self._materialize_guarded, prepare=self._prepare_ticket,
+            stats=self.stats,
+            max_depth=int(os.environ.get("BITCOINCONSENSUS_TPU_INFLIGHT_DEPTH", "4")),
+            deadline_s=float(os.environ.get(
+                "BITCOINCONSENSUS_TPU_SETTLE_DEADLINE_S", "8.0")),
+        )
+        # Set-up, once per verifier, so that a verify call's time is the
+        # verify's own: the sentinel templates' host EC math; on a card, the
+        # kernels built or loaded, the G table uploaded and the modules
+        # loaded by one launch of each over pad lanes.
+        _guards._sentinel_templates()
         if self.device.type == "cuda":
-            # Set-up, once per verifier: build or load the kernel, upload
-            # the G table and load the module with one launch over pad
-            # lanes, so a verify call's time is the verify's own.
-            verify_tiles(*self.to_device(self._pack_lanes([])))
+            ok, _needs = verify_tiles(*self.to_device(self._pack_lanes([])))
+            if self._checksum:
+                verdict_checksum(ok)
             torch.cuda.synchronize(self.device)
+
+    @property
+    def in_flight(self) -> int:
+        """Dispatches not yet settled (the in-flight queue's depth)."""
+        return self._inflight.depth
 
     def _pad(self, n: int) -> int:
         # `n + 1`, not `n`: every padded shape reserves at least one pad lane
@@ -358,42 +403,80 @@ class TorchSecpVerifier:
         return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
                      for a in args)
 
-    def _launch(self, args, n: int) -> _Pending:
-        """Upload one packed 7-tuple and launch the kernel over it, with
-        nothing synchronised: on a card the arrays are copied into pinned
-        buffers and sent with non-blocking copies, and the kernel and its
-        events go on the device's current stream."""
+    # -- the guarded dispatch: the in-flight queue's callbacks ----------------
+
+    def _prepare_ticket(self, args, n: int):
+        """Stage one packed 7-tuple for its ticket: a copy the relaunches of
+        a retry read from (pinned on a card), with the rotating known-answer
+        sentinel lanes written into its pad rows. The caller's arrays stay
+        as they were packed. Returns (staged tensors, SentinelSet)."""
         host = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in args)
-        events = None
         if self.device.type == "cuda":
             host = tuple(t.pin_memory() for t in host)
-            dev = tuple(t.to(self.device, non_blocking=True) for t in host)
-            stream = torch.cuda.current_stream(self.device)
-            events = (torch.cuda.Event(enable_timing=True),
-                      torch.cuda.Event(enable_timing=True))
-            events[0].record(stream)
-            ok, needs = verify_tiles(*dev)
-            events[1].record(stream)
         else:
-            ok, needs = verify_tiles(*host)
+            host = tuple(t.clone() for t in host)
+        sset = _guards.install_sentinels(tuple(t.numpy() for t in host), n)
+        if sset is None:  # no pad row: a caller packed exactly n lanes
+            self.stats["sentinel_skipped"] += 1
+        else:
+            self.stats["sentinel_lanes"] += len(sset.positions)
         self.stats["lanes"] += n
         self.stats["padded_lanes"] += int(host[0].shape[0])
-        self.stats["dispatches"] += 1
-        self.in_flight += 1
-        return _Pending(ok, needs, events, host)
+        return host, sset
 
-    def _settle(self, pending: _Pending, n: int) -> Tuple[np.ndarray, np.ndarray]:
-        """Wait for one dispatch: (ok[:n], needs_host[:n]) as numpy bools."""
-        if pending.settled:
-            raise ValueError("this dispatch was already settled")
-        with accumulate(self.stats, "device_wait_s"):
-            both = torch.stack((pending.ok[:n], pending.needs[:n])).cpu().numpy()
-        if pending.events is not None:
-            self.stats["kernel_ms"] += pending.events[0].elapsed_time(pending.events[1])
-        pending.settled = True
-        pending.host = None
-        self.in_flight -= 1
-        return both[0], both[1]
+    def _launch_ticket(self, host, n: int, sset):
+        """Upload a ticket's staged lanes and launch the verify kernel, then
+        the checksum kernel over its `ok`, and queue the copies of both
+        back, with nothing synchronised: on a card the uploads are
+        non-blocking copies from pinned memory and everything goes on the
+        device's current stream. Returns (the launch, the checksum tensor
+        or None)."""
+        _faults.maybe_raise("torch_backend.dispatch")
+        self.stats["dispatches"] += 1
+        if self.device.type != "cuda":
+            ok, needs = verify_tiles(*host)
+            aux = verdict_checksum(ok.contiguous()) if self._checksum else None
+            return _Launched(ok, needs), aux
+        dev = tuple(t.to(self.device, non_blocking=True) for t in host)
+        stream = torch.cuda.current_stream(self.device)
+        events = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+        events[0].record(stream)
+        ok, needs = verify_tiles(*dev)
+        events[1].record(stream)
+        outs = [ok, needs]
+        if self._checksum:
+            outs.append(verdict_checksum(ok))
+        back = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in outs]
+        for h, t in zip(back, outs):
+            h.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(stream)
+        return (_Launched(back[0], back[1], events, done),
+                back[2] if self._checksum else None)
+
+    def _materialize_guarded(self, ticket: Ticket):
+        """The settle seam, the one place a dispatch's verdicts reach the
+        host: one wait for the launch's copies, then the guards over the
+        padded buffers: `validate_verdict` on `ok` (after the
+        `torch_backend.verdict` fault hook) and `needs`, the sentinels, and
+        the device checksum against the sums of the `ok` received. Returns
+        padded (ok, needs) bool arrays; raises `VerdictAnomaly`."""
+        res = ticket.result
+        if res.done is not None:
+            with accumulate(self.stats, "device_wait_s"):
+                res.done.synchronize()
+        padded = int(ticket.args[0].shape[0])
+        ok_raw = _faults.corrupt_verdict("torch_backend.verdict", res.ok.numpy())
+        ok = _guards.validate_verdict(ok_raw, padded, self._SITE)
+        needs = _guards.validate_verdict(res.needs.numpy(), padded, self._SITE)
+        _guards.check_sentinels(ticket.sset, ok, needs, self._SITE)
+        if ticket.aux is not None:
+            sums = ticket.aux.numpy()
+            _guards.check_checksum((int(sums[0]), int(sums[1])), ok, self._SITE)
+        if res.events is not None:
+            self.stats["kernel_ms"] += res.events[0].elapsed_time(res.events[1])
+        return ok, needs
 
     def verify_checks(self, checks: Sequence[SigCheck]) -> np.ndarray:
         """Verify a mixed batch; returns a bool array aligned with `checks`:
@@ -405,7 +488,11 @@ class TorchSecpVerifier:
         reach the host (`device_wait_s`), device time of the
         kernel by CUDA events (`kernel_ms`, CUDA only), the host fixup
         (`fixup_s`), and the lane, padded lane, dispatch and fixup counts
-        (`lanes`, `padded_lanes`, `dispatches`, `fixups`), over both seams."""
+        (`lanes`, `padded_lanes`, `dispatches`, `fixups`), over both seams.
+        The guards add theirs: `tickets`, `sentinel_lanes` (and
+        `sentinel_skipped`), `settle_failures`, `guard_anomalies`,
+        `retries`, `backpressure` and `deadline_expired`; the batch drivers
+        add `cache_poison_caught`."""
         if not checks:
             return np.zeros(0, dtype=bool)
         with gc_paused():
@@ -425,39 +512,44 @@ class TorchSecpVerifier:
                 else:
                     packed = self._pack_lanes(self._prep_lanes(sub))
             with self.phases("dispatch"):
-                pending.append((start, len(sub), self._launch(packed, len(sub))))
+                pending.append((start, len(sub),
+                                self._inflight.dispatch(packed, len(sub))))
         return checks, pending
 
     def verify_checks_finish(self, handle) -> np.ndarray:
-        """Settle a `verify_checks_begin` handle into the result array; lanes
-        the kernel flags `needs_host` are resolved exactly on the host."""
+        """Settle a `verify_checks_begin` handle into the result array: every
+        dispatch through the guards (raising `DispatchFailed` where its
+        retries are spent); lanes the kernel flags `needs_host` are resolved
+        exactly on the host."""
         checks, pending = handle
         out = np.zeros(len(checks), dtype=bool)
-        for start, count, pend in pending:
+        for start, count, ticket in pending:
             with self.phases("sync"):
-                ok, needs = self._settle(pend, count)
-            out[start : start + count] = ok
+                ok, needs = self._inflight.settle(ticket)
+            out[start : start + count] = ok[:count]
             # Exceptional group-law lanes (crafted scalar collisions): the
             # fast device adds deferred them; resolve exactly on the host.
             with accumulate(self.stats, "fixup_s"):
-                for i in np.nonzero(needs)[0]:
+                for i in np.nonzero(needs[:count])[0]:
                     out[start + int(i)] = self._host_check(checks[start + int(i)])
                     self.stats["fixups"] += 1
         return out
 
-    def dispatch_lanes(self, args, n: int) -> _Pending:
+    def dispatch_lanes(self, args, n: int) -> Ticket:
         """Dispatch one packed lane batch (the 7-tuple of `prep_pack` or
         `NativeSession.uniq_lanes`, already padded, `n` real lanes); returns
-        a handle for `sync_lanes`, without waiting for the device."""
+        its ticket for `sync_lanes`, without waiting for the device."""
         with self.phases("dispatch"):
-            return self._launch(args, n)
+            return self._inflight.dispatch(args, n)
 
-    def sync_lanes(self, pending: _Pending, n: int) -> Tuple[np.ndarray, np.ndarray]:
-        """Settle a `dispatch_lanes` handle: (ok[:n], needs_host[:n]). Lanes
-        flagged `needs_host` report ok False; the caller resolves them
-        exactly (`NativeSession.uniq_host_verify`)."""
+    def sync_lanes(self, pending: Ticket, n: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Settle a `dispatch_lanes` ticket through the guards:
+        (ok[:n], needs_host[:n]), or `DispatchFailed` where its retries are
+        spent. Lanes flagged `needs_host` report ok False; the caller
+        resolves them exactly (`NativeSession.uniq_host_verify`)."""
         with self.phases("sync"):
-            return self._settle(pending, n)
+            ok, needs = self._inflight.settle(pending)
+        return ok[:n], needs[:n]
 
     def _host_check(self, chk: SigCheck) -> bool:
         """Exact host resolution of one check: the native core's, or the

@@ -35,8 +35,14 @@ N+1 (parse, probe, interpretation, dispatch) before it settles batch N.
 `models/validate.connect_block` drives the same fixpoint for a block.
 
 Results are bit-identical to the per-input `api` entry points, `Error` and
-`ScriptError` included, on either engine and either driver. A device fault
-raises; it is not retried on the host.
+`ScriptError` included, on either engine and either driver. Every dispatch
+settles through the verifier's guards (`resilience/`); a device fault the
+retries do not clear raises `DispatchFailed`, and so does the `batch.dispatch`
+fault site where a driver dispatches (the reference re-verifies those checks
+on the host instead): nothing of that dispatch enters either cache. With
+`resilience.set_cache_audit(True)` both drivers re-verify every sig-cache hit
+on the exact host oracle and discard an entry proven wrong
+(`stats["cache_poison_caught"]` of the verifier).
 """
 
 from __future__ import annotations
@@ -57,6 +63,8 @@ from ..core.sighash import PrecomputedTxData
 from ..core.tx import Tx, TxOut
 from ..crypto.torch_backend import SigCheck, TorchSecpVerifier, default_verifier
 from ..native_bridge import NativeSession, NativeTx
+from ..resilience import faults as _faults
+from ..resilience import guards as _guards
 from ..utils.gcpause import gc_paused
 from ..utils.profiling import accumulate
 from .sigcache import (
@@ -452,13 +460,22 @@ def _verify_batch(items, verifier, sig_cache, script_cache, engine):
             todo.append(chk)
         if todo:
             fresh: List[Tuple[SigCheck, bytes]] = []
+            audit = _guards.audit_cache_hits()
             for chk, ck in zip(todo, sig_cache.keys_for_checks(todo, engine),
                                strict=True):
                 if sig_cache.contains_key(ck):
-                    known[(chk.kind, chk.data)] = True
+                    # Audit: a hit certifies a past success, a poisoned entry
+                    # nothing; re-verify it exactly, discard it if wrong.
+                    if audit and not verifier._host_check(chk):
+                        verifier.stats["cache_poison_caught"] += 1
+                        sig_cache.discard_key(ck)
+                        fresh.append((chk, ck))
+                    else:
+                        known[(chk.kind, chk.data)] = True
                 else:
                     fresh.append((chk, ck))
             if fresh:
+                _faults.maybe_raise("batch.dispatch")
                 run_res = verifier.verify_checks([c for c, _ in fresh])
                 for (chk, ck), r in zip(fresh, run_res, strict=True):
                     known[(chk.kind, chk.data)] = bool(r)
@@ -573,7 +590,9 @@ def _accept_mask(state: _UniqState, rec_idx: np.ndarray, bounds, unk) -> np.ndar
 def _dispatch_uniq(nsess, verifier, sig_cache, state: _UniqState):
     """The asynchronous half of a resolve round over the uniq entries this
     round discovered: the salted sig-cache probe first (a hit certifies a
-    past success), then the misses' lanes packed in the session and
+    past success; under the cache audit it is re-verified exactly in the
+    session, and an entry proven wrong is discarded and its check
+    dispatched), then the misses' lanes packed in the session and
     dispatched, one `dispatch_lanes` per chunk, nothing synchronised.
     Every new entry resolves in its round, the speculative CHECKMULTISIG
     pairings included: a misaligned multisig's re-interpretation needs them
@@ -588,13 +607,21 @@ def _dispatch_uniq(nsess, verifier, sig_cache, state: _UniqState):
         raw = nsess.uniq_digests(sig_cache._salt, grow).tobytes()
     keys = [raw[32 * j : 32 * j + 32] for j in range(U - lo)]
     state.val = np.concatenate([state.val, np.zeros(U - lo, dtype=bool)])
-    if len(sig_cache) == 0:
+    if len(sig_cache) == 0 and _faults.active() is None:
         miss = grow  # a cold cache: every probe misses
     else:
         hit = np.fromiter((sig_cache.contains_key(k) for k in keys), dtype=bool,
                           count=U - lo)
+        if _guards.audit_cache_hits():
+            for j in np.nonzero(hit)[0]:
+                if not nsess.uniq_host_verify(int(grow[j])):
+                    verifier.stats["cache_poison_caught"] += 1
+                    sig_cache.discard_key(keys[j])
+                    hit[j] = False
         state.val[grow[hit]] = True
         miss = grow[~hit]
+    if len(miss):
+        _faults.maybe_raise("batch.dispatch")
     pending = []
     cap = verifier.lane_capacity
     for s in range(0, len(miss), cap):
@@ -685,7 +712,10 @@ class IdxFixpoint:
     def abandon(self) -> None:
         """Settle and discard the round in flight without running the
         fixpoint (a stream closed early). Unlike the reference, which
-        swallows every settle error here, a device fault raises."""
+        swallows every settle error here, a failure raises: with the guards,
+        one that reaches this point is a `DispatchFailed` (the device gave
+        no guarded answer within the retry budget), which a closed stream
+        must not hide from its caller."""
         if self._in_flight is not None:
             _interp, rec = self._in_flight
             self._in_flight = None

@@ -17,7 +17,14 @@ hashers (sigcache.cpp:22-30). A batch's keys are digested in one call of
 the native host core (`native_bridge.digest_checks` / `digest_streams`),
 byte-equal to `_key`, which stays the spec and serves `engine="python"`.
 Storage is a bounded LRU behind a mutex, so concurrent `verify_batch`
-calls are safe. Port of `bitcoinconsensus_tpu/models/sigcache.py`.
+calls are safe. The counts keep `hits + misses` equal to the probes and
+`insertions - evictions - erases` equal to the entries. Each cache is a
+fault site, `sigcache.<label>` (`resilience/faults.py`): an armed `poison`
+fault makes one probe report a fabricated hit, what a poisoned entry would
+show; `discard_key` drops an entry the batch drivers' audit proved wrong
+(`resilience/guards.set_cache_audit`). Port of
+`bitcoinconsensus_tpu/models/sigcache.py`; its telemetry counters wait for
+the port's `obs/`.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from collections import OrderedDict
 from typing import Iterable, List, Optional, Sequence, Tuple
 
 from .. import native_bridge
+from ..resilience import faults as _faults
 
 __all__ = [
     "SigCache",
@@ -41,16 +49,18 @@ __all__ = [
 class _SaltedLRU:
     """Bounded success-set with a per-process salted key digest."""
 
-    def __init__(self, max_entries: int):
+    def __init__(self, max_entries: int, cache_label: str = "cache"):
         if max_entries <= 0:
             raise ValueError("max_entries must be positive")
         self._salt = os.urandom(32)
         self._max = max_entries
+        self._poison_site = "sigcache." + cache_label
         self._set: OrderedDict[bytes, None] = OrderedDict()
         self._lock = threading.Lock()
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+        self.erases = 0
         self.insertions = 0
 
     def _key(self, parts: Iterable[bytes]) -> bytes:
@@ -67,20 +77,39 @@ class _SaltedLRU:
             return native_bridge.digest_streams(self._salt, items)
         return [self._key(parts) for parts in items]
 
-    def contains_key(self, k: bytes) -> bool:
-        """Probe by a precomputed digest; a hit refreshes its recency."""
+    def contains_key(self, k: bytes, erase: bool = False) -> bool:
+        """Probe by a precomputed digest. A hit refreshes its recency, or
+        with `erase` removes the entry (the reference's erase-on-hit of the
+        block path). An armed `poison` fault reports a hit and leaves the
+        entries as they were."""
+        poisoned = _faults.poison_hit(self._poison_site)
         with self._lock:
-            if k not in self._set:
-                self.misses += 1
-                return False
-            self.hits += 1
-            self._set.move_to_end(k)
-            return True
+            if k in self._set:
+                self.hits += 1
+                if erase:
+                    del self._set[k]
+                    self.erases += 1
+                else:
+                    self._set.move_to_end(k)
+                return True
+            if poisoned:
+                self.hits += 1  # counted as a hit: hits + misses == probes
+                return True
+            self.misses += 1
+            return False
+
+    def discard_key(self, k: bytes) -> None:
+        """Drop an entry proven wrong (the cache audit); nothing where it is
+        absent. Counted as an erase."""
+        with self._lock:
+            if k in self._set:
+                del self._set[k]
+                self.erases += 1
 
     def add_key(self, k: bytes) -> None:
         with self._lock:
             # A re-add of a present key is a freshness touch, not an
-            # insertion (keeps insertions - evictions == entries).
+            # insertion (keeps insertions - evictions - erases == entries).
             new = k not in self._set
             self._set[k] = None
             self._set.move_to_end(k)
@@ -99,8 +128,8 @@ class SigCache(_SaltedLRU):
 
     A `SigCheck`'s (kind, data) tuple is flattened into the salted digest."""
 
-    def __init__(self, max_entries: int = 1 << 16):
-        super().__init__(max_entries)
+    def __init__(self, max_entries: int = 1 << 16, cache_label: str = "sig"):
+        super().__init__(max_entries, cache_label=cache_label)
 
     @staticmethod
     def _parts(kind: str, data: Tuple) -> Tuple[bytes, ...]:
@@ -127,8 +156,8 @@ class ScriptExecutionCache(_SaltedLRU):
     spent-outputs digest) — validation.cpp:1529-1536 reshaped to the
     per-input batch API."""
 
-    def __init__(self, max_entries: int = 1 << 15):
-        super().__init__(max_entries)
+    def __init__(self, max_entries: int = 1 << 15, cache_label: str = "script"):
+        super().__init__(max_entries, cache_label=cache_label)
 
     @staticmethod
     def _parts(

@@ -1,0 +1,237 @@
+"""In-flight dispatch tickets, settled through the guards.
+
+Port of `bitcoinconsensus_tpu/resilience/inflight.py` with one device level.
+A dispatch returns a `Ticket` without waiting for the device; a ticket's
+verdicts are believed only after they pass the guards (`guards.py`) at
+settle. Ticket lifecycle::
+
+    dispatch(args, n)                     settle(ticket)
+      | backpressure: settle the oldest    | materialize: one wait, then
+      |   while depth >= max_depth         |   validate, sentinels, checksum
+      | prepare(args, n) -> staged, sset   | clean -> (ok, needs), cached
+      | launch(staged, n, sset)            | failure -> retry on the same
+      |   (an exception is kept on the     |   kernel from the staged
+      |   ticket, settled as a failure)    |   buffers, within the budget
+      | deadline = now + deadline_s        |   and the ticket's deadline
+      + queued ---------------------------> | spent -> DispatchFailed, cached
+
+Where the reference hands a failed ticket's lanes to the host-exact oracle,
+the port raises `DispatchFailed` with the last failure as its cause: by the
+port's rule a failed guard is not demoted to a slower backend. A CUDA error
+that leaves the device context unusable (an illegal address, a launch
+failure) is not retried: it raises at once.
+
+Settling is idempotent and order-independent: a ticket resolves once, and
+settling it again returns the same outcome or raises the same
+`DispatchFailed`. Backpressure resolves the oldest ticket before its owner
+asks for it, and keeps a failure for the owner. The queue holds at most
+`max_depth` unresolved tickets, so a stalled device turns the pipeline
+synchronous instead of piling up host buffers. One lock guards the queue
+and each resolution, so threads that share a verifier neither lose a
+ticket nor settle one twice.
+
+`settle_array` is the one sanctioned place outside the verifier's settle
+seam that copies a device tensor to the host (`analysis/host_lint.py`, the
+`sync` rule over this module). The reference counts tickets, backpressure,
+expired deadlines and retries in telemetry; the port counts them in the
+`stats` dict it is given (the verifier's). Host-side policy only; time is
+read through `utils/profiling.monotonic`.
+"""
+
+from __future__ import annotations
+
+import re
+import threading
+import time
+from collections import defaultdict
+from typing import Any, Callable, List, Optional, Tuple
+
+import numpy as np
+
+from ..utils.profiling import monotonic
+from .degrade import DispatchFailed, DispatchResilience
+from .guards import VerdictAnomaly
+
+__all__ = ["InflightQueue", "Ticket", "settle_array", "unrecoverable"]
+
+
+def settle_array(x) -> np.ndarray:
+    """A device tensor (or anything array-like) as a host numpy array,
+    waiting for it: the sanctioned device->host copy outside the settle
+    seam."""
+    if hasattr(x, "cpu"):
+        return x.cpu().numpy()
+    return np.asarray(x)
+
+
+# CUDA errors after which the context is unusable: retrying the launch
+# cannot succeed (cudaErrorIllegalAddress 700, Assert 710, HardwareStack
+# 714, IllegalInstruction 715, MisalignedAddress 716, InvalidAddressSpace
+# 717, InvalidPc 718, LaunchFailure 719, ECCUncorrectable 214, Unknown 999),
+# as `ops/launch.py` reports them and as torch words them.
+_STICKY_CODES = frozenset({214, 700, 710, 714, 715, 716, 717, 718, 719, 999})
+_STICKY_TEXT = ("illegal memory access", "device-side assert",
+                "hardware stack error", "illegal instruction",
+                "misaligned address", "invalid address space",
+                "invalid program counter", "unspecified launch failure",
+                "uncorrectable ECC")
+
+
+def unrecoverable(exc: BaseException) -> bool:
+    """Whether `exc` is a CUDA error that leaves the device context unusable."""
+    msg = str(exc)
+    if "CUDA error" not in msg:
+        return False
+    code = re.search(r"CUDA error (\d+)", msg)
+    return (code is not None and int(code.group(1)) in _STICKY_CODES) or \
+        any(t in msg for t in _STICKY_TEXT)
+
+
+class Ticket:
+    """One in-flight dispatch: its staged buffers, the unsynchronised
+    result and the settle context."""
+
+    __slots__ = (
+        "args", "n", "attempts", "deadline", "sset", "result", "aux",
+        "error", "settled", "outcome", "failure",
+    )
+
+    def __init__(self, args, n: int, deadline: float):
+        self.args = args            # staged buffers a relaunch reads
+        self.n = n                  # real lanes of the dispatch
+        self.attempts = 1
+        self.deadline = deadline    # wall-clock settle deadline
+        self.sset = None            # what `prepare` returned (the sentinels)
+        self.result = None          # unsynchronised device result
+        self.aux = None             # the in-flight checksum, or None
+        self.error = None           # the launch's exception, if any
+        self.settled = False
+        self.outcome = None         # (ok, needs) after a clean settle
+        self.failure = None         # DispatchFailed after a failed one
+
+
+class InflightQueue:
+    """A bounded queue of in-flight tickets settling through the guards.
+
+    The queue owns the policy (deadlines, retries, backpressure); the
+    verifier supplies the mechanism:
+
+    - `prepare(args, n) -> (staged, sset)`, once per ticket at dispatch:
+      stage the buffers, install the sentinel lanes;
+    - `launch(staged, n, sset) -> (result, aux)`: start the device work and
+      return unsynchronised tensors and the in-flight checksum (or None).
+      It must not wait. An exception is kept on the ticket and settled as a
+      failure;
+    - `materialize(ticket) -> (ok, needs)`: the settle seam: wait, run the
+      fault hooks and the guards; raises on a buffer they reject.
+    """
+
+    def __init__(
+        self,
+        resilience: DispatchResilience,
+        site: str,
+        launch: Callable[[Any, int, Any], Tuple[Any, Any]],
+        materialize: Callable[[Ticket], Tuple[np.ndarray, np.ndarray]],
+        prepare: Optional[Callable[[Any, int], Tuple[Any, Any]]] = None,
+        stats=None,
+        max_depth: int = 4,
+        deadline_s: float = 8.0,
+        backoff_s: float = 0.002,
+    ):
+        self._res = resilience
+        self.site = site
+        self._launch_cb = launch
+        self._materialize = materialize
+        self._prepare = prepare
+        self.stats = stats if stats is not None else defaultdict(float)
+        self.max_depth = max(1, int(max_depth))
+        self.deadline_s = float(deadline_s)
+        self.backoff_s = float(backoff_s)
+        self._pending: List[Ticket] = []
+        self._lock = threading.RLock()
+
+    # -- dispatch side -------------------------------------------------
+
+    def dispatch(self, args, n: int) -> Ticket:
+        """Launch one batch; return its ticket without waiting."""
+        with self._lock:
+            while len(self._pending) >= self.max_depth:
+                self.stats["backpressure"] += 1
+                self._resolve(self._pending[0])
+            sset = None
+            if self._prepare is not None:
+                args, sset = self._prepare(args, n)
+            ticket = Ticket(args, n, deadline=monotonic() + self.deadline_s)
+            ticket.sset = sset
+            self.stats["tickets"] += 1
+            self._launch(ticket)
+            self._pending.append(ticket)
+            return ticket
+
+    def _launch(self, ticket: Ticket) -> None:
+        """Launch (or relaunch) a ticket's device work from its staged buffers."""
+        ticket.result = ticket.aux = ticket.error = None
+        try:
+            ticket.result, ticket.aux = self._launch_cb(
+                ticket.args, ticket.n, ticket.sset)
+        except Exception as exc:  # settled as a failure; nothing runs instead
+            ticket.error = exc
+
+    # -- settle side ---------------------------------------------------
+
+    def settle(self, ticket: Ticket) -> Tuple[np.ndarray, np.ndarray]:
+        """`(ok, needs)` of a ticket, padded, having passed every guard;
+        raises `DispatchFailed` where no attempt within the budget did.
+        Idempotent and order-independent."""
+        with self._lock:
+            self._resolve(ticket)
+        if ticket.failure is not None:
+            raise ticket.failure
+        return ticket.outcome
+
+    def _resolve(self, ticket: Ticket) -> None:
+        """Settle a ticket, retrying within the budget, and keep its
+        outcome or its failure on it. Never raises."""
+        if ticket.settled:
+            return
+        if ticket in self._pending:
+            self._pending.remove(ticket)
+        stats = self.stats
+        while True:
+            failure = ticket.error
+            if failure is None:
+                try:
+                    ticket.outcome = self._materialize(ticket)
+                    break
+                except Exception as exc:
+                    failure = exc
+            stats["settle_failures"] += 1
+            if isinstance(failure, VerdictAnomaly):
+                stats["guard_anomalies"] += 1
+            if unrecoverable(failure):
+                break
+            if monotonic() >= ticket.deadline:
+                stats["deadline_expired"] += 1
+                break
+            if not self._res.may_retry(ticket.attempts, ticket.deadline):
+                break
+            stats["retries"] += 1
+            ticket.attempts += 1
+            if self.backoff_s > 0.0:
+                time.sleep(min(self.backoff_s * (1 << min(ticket.attempts, 8)),
+                               0.05))
+            self._launch(ticket)
+        if ticket.outcome is None:
+            err = DispatchFailed(
+                f"{self.site}: dispatch of {ticket.n} lanes failed after "
+                f"{ticket.attempts} attempt(s): {failure}")
+            err.__cause__ = failure
+            ticket.failure = err
+        ticket.settled = True
+        ticket.args = ticket.result = ticket.aux = ticket.error = None
+
+    # -- introspection -------------------------------------------------
+
+    @property
+    def depth(self) -> int:
+        return len(self._pending)

@@ -4,9 +4,10 @@ A port of `Phases` from `bitcoinconsensus_tpu/utils/profiling.py` without
 its telemetry spans (the port has no `obs/` yet): each phase accumulates
 its seconds and calls on the instance, under a lock, because the batch
 drivers' phases may be entered from more than one thread. `accumulate`
-adds a block's seconds to one key of a stats dict. Host code of `core/`,
-`models/` and `crypto/` reads no clock of its own (`analysis/host_lint.py`,
-the `time` rule).
+adds a block's seconds to one key of a stats dict, and `monotonic()` is
+the clock the in-flight queue's deadlines read (`resilience/`). Host code
+of `core/`, `models/`, `crypto/` and `resilience/` reads no clock of its
+own (`analysis/host_lint.py`, the `time` rule).
 
     ph = Phases()
     with ph("host_prep"):
@@ -25,7 +26,12 @@ import time
 from contextlib import contextmanager
 from typing import Dict
 
-__all__ = ["Phases", "accumulate"]
+__all__ = ["Phases", "accumulate", "monotonic"]
+
+
+def monotonic() -> float:
+    """Seconds on the host's monotonic clock (deadlines and retry budgets)."""
+    return time.monotonic()
 
 
 @contextmanager

@@ -6,7 +6,8 @@
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. The card: nvidia-smi name and power limit, torch and CUDA versions.
-2. Build every kernel from `bitcoinconsensus_tpu_torch/csrc` with nvcc, and
+2. Build every kernel from `bitcoinconsensus_tpu_torch/csrc` with nvcc (the
+   verify kernel, the verdict checksum and the toys), and
    the native host core (`csrc/native/`) and the host build of the verify
    kernel's lane program (`csrc/verify_tiles_host.cpp`, for the scalar
    prover) with g++, one process per source, all started together; print
@@ -43,7 +44,18 @@ Phases, each printing its own lines; any failure exits non-zero:
    `api` on its Python engine (`[block_exact]`); and the block with one
    corrupted signature, rejected alike by both, the bad tx's inputs as the
    per-input `api` says (`[block_reject]`). Each path's kernel launches are
-   read around it alone, and each must launch the kernel.
+   read around it alone, and each must launch the verify kernel and, on
+   every dispatch, the verdict checksum kernel: every dispatch is guarded
+   (sentinel lanes in its pad, the checksum, `validate_verdict`). Then
+   `[guards]`: the main path, the block and the stream with
+   BITCOINCONSENSUS_TPU_CHECKSUM on and off in turns, every verdict equal,
+   sentinel lanes per dispatch and both kernels' launches reported; and
+   `[chaos]`: each fault kind at each of the port's sites
+   (`torch_backend.dispatch`, `torch_backend.verdict`, `batch.dispatch`,
+   `sigcache.sig` under the cache audit), once transient and once
+   persistent, over 2,000 of the inputs: a transient fault gives the clean
+   verdicts, a persistent one raises what the site raises, and no case
+   returns a wrong ACCEPT.
 4. Lane packing: the native core's packed lanes of the first 8,192 checks
    byte-equal to the Python packers', pad lanes included (`[lane_pack]`,
    both host times). Kernel against its plain version on the card: those
@@ -59,7 +71,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    `.cu`'s own recoder built with g++ and an independent Python recoder
    (signed digits, tolerance 0, with the kernel's ms), and a width sweep: kernel ms at 64, 4,908, 8,192 and 32,768 lanes (the
    panel tiled), each compared with the plain version on a sample of lanes,
-   with the SM clock and power draw read while it runs back to back.
+   with the SM clock and power draw read while it runs back to back. Then
+   the verdict checksum kernel against its plain version at 16 widths from
+   1 to 32,768 lanes, random, all-true and all-false buffers, with its time
+   per call beside the two-call PyTorch equivalent (in turns), its device
+   time and its bound at the sweep widths (`[checksum]`).
 5. The kernel prover (`analysis/registry.py`), after the main path so that
    its tracing leaves the main path's timing alone: every non-heavy entry
    must prove, `verify_tiles`'s launch contract included (8,192 and 4,908
@@ -78,8 +94,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    host cost included; the median of 7 rounds of 200 calls, and where one
    PyTorch call computes the same function, the two are timed in turns) and by
    torch.profiler on the card alone (`device_ms`).
-7. A `kernels` JSON line (with each path's launches of `verify_tiles`), the
-   card line, and the result line.
+7. A `kernels` JSON line (with each path's launches of `verify_tiles` and
+   `verdict_checksum`), the card line, and the result line.
 
 The script needs the repository beside it; with no CUDA device, or alone in
 a directory, it exits non-zero without a result. `--rehearse-cpu` runs the
@@ -320,6 +336,8 @@ def _prover() -> None:
     from bitcoinconsensus_tpu_torch.analysis import registry
 
     bad = []
+    if "cuda.verdict_checksum" not in [s.name for s in registry.all_kernels(False)]:
+        bad.append("cuda.verdict_checksum is not registered")
     for spec in registry.all_kernels(include_heavy=False):
         t0 = time.perf_counter()
         rep = spec.analyze()
@@ -604,7 +622,7 @@ def _stream(items, results, device, sync, launches_around, rehearse) -> None:
         _fail("a stream closed early left a dispatch unsettled or changed a verdict")
 
 
-def _block(device, sync, launches_around, rehearse) -> None:
+def _block(device, sync, launches_around, rehearse):
     """BASELINE.json config 5 as scripts/bench_configs.py builds it: 3,200
     inputs in 400 txs of 8, kinds cycling p2wpkh, p2tr, p2wpkh, p2wsh 2-of-3
     (4,000 signatures), height 710,000, regtest proof of work, the verifier
@@ -619,7 +637,9 @@ def _block(device, sync, launches_around, rehearse) -> None:
     per-input results to the per-input `api` on its Python engine
     (`[block_exact]`). `[block_reject]`: the block with one corrupted
     signature, rejected alike on both, the views unchanged, the bad tx's
-    inputs as the per-input `api` says."""
+    inputs as the per-input `api` says. Returns `connect(verifier)`, which
+    connects the block on a fresh clone of the view with fresh caches, and
+    the result it must give (for `[guards]`)."""
     import numpy as np
 
     from bitcoinconsensus_tpu_torch import native_bridge as NB
@@ -809,6 +829,260 @@ def _block(device, sync, launches_around, rehearse) -> None:
             or failed[0][1] != "ERR_SCRIPT" or bad_diff or not unchanged:
         _fail("the block with a corrupted signature was not rejected alike")
 
+    def connect(verifier):
+        got = connect_block(block, nview0.clone(), height, verifier=verifier,
+                            pow_limit=B.REGTEST_POW_LIMIT, sig_cache=SigCache(),
+                            script_cache=ScriptExecutionCache())
+        return tup(got)
+
+    return connect, tup(res), dict(min_batch=512, chunk=8192, pad_step=2048)
+
+
+def _checksum_phase(device, rng, rehearse):
+    """`[checksum]`: the verdict checksum kernel against its plain version on
+    random, all-true and all-false buffers at every width listed, 0
+    differing; at the sweep widths its time per call (CUDA events, the
+    wrapper's host cost included) in turns with the two-call PyTorch
+    equivalent (`torch.mv` of a (2, B) float32 matrix of ones and weights
+    over the buffer as float32, exact below 2^24), its device time
+    (torch.profiler), the plain version's time and its bound. Returns the
+    kernels-line entry at 8,192 lanes (the main path's dispatch width)."""
+    import numpy as np
+    import torch
+
+    from bitcoinconsensus_tpu_torch.ops import verdict_checksum as VC
+
+    widths = (1, 31, 32, 33, 64, 250, 251, 252, 1023, 1024, 1025, 4908, 6144,
+              8191, 8192, 32768)
+    timed_widths = (64,) if rehearse else SWEEP_WIDTHS
+    entry = None
+    differing = max_err = 0
+    for width in widths:
+        bufs = [rng.integers(0, 2, width).astype(bool), np.ones(width, bool),
+                np.zeros(width, bool)]
+        for buf in bufs:
+            ok = torch.from_numpy(buf).to(device)
+            got = VC.verdict_checksum(ok).cpu().tolist()
+            want = VC.verdict_checksum_reference(ok).cpu().tolist()
+            differing += got != want
+            max_err = max(max_err, *(abs(a - b) for a, b in zip(got, want)))
+        if width not in timed_widths:
+            continue
+        ok = torch.from_numpy(bufs[0]).to(device)
+        w = torch.stack((torch.ones(width), torch.arange(width) % VC.CHECKSUM_MOD + 1.0)
+                        ).to(device=device, dtype=torch.float32)
+
+        def library(ok=ok, w=w):
+            return torch.mv(w, ok.to(torch.float32))
+
+        lib = [int(x) for x in library().cpu().tolist()]
+        differing += lib != VC.verdict_checksum_reference(ok).cpu().tolist()
+        ms, lib_ms = _timed_turns([lambda ok=ok: VC.verdict_checksum(ok), library],
+                                  1 if rehearse else 200, 1 if rehearse else 7, device)
+        plain_ms = _timed(lambda ok=ok: VC.verdict_checksum_reference(ok),
+                          1 if rehearse else 20, device)
+        dev_ms = None if rehearse else _device_ms(lambda ok=ok: VC.verdict_checksum(ok),
+                                                  50, "vc_checksum_kernel")
+        # Each input byte read once and the two words written once; about 4
+        # int32 operations a lane (compare, multiply, two adds).
+        b_ms, b_by = _bound(width + 8.0, 4.0 * width)
+        _line("checksum", lanes=width, ms=f"{ms:.5f}", device_ms=json.dumps(dev_ms),
+              plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.5f}",
+              bound_ms=f"{b_ms:.3g}", bound_by=b_by)
+        if width == 8192 or rehearse:
+            entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib_ms, device_ms=dev_ms)
+    _line("checksum", widths=len(widths), buffers=3 * len(widths), tolerance=0,
+          differing=differing, max_abs_err=max_err)
+    if differing:
+        _fail("the verdict checksum kernel and its plain version disagree")
+    entry["max_abs_err"] = max_err
+    return entry
+
+
+def _set_checksum(on: bool) -> None:
+    """BITCOINCONSENSUS_TPU_CHECKSUM for the verifiers built next."""
+    os.environ["BITCOINCONSENSUS_TPU_CHECKSUM"] = "1" if on else "0"
+
+
+def _guards_phase(items, results, block_run, device, sync, rehearse) -> None:
+    """`[guards]`: the main path (one `verify_batch` over every input), the
+    config-5 block and the stream (5 batches at depth 2), each with the
+    device checksum on and off in turns (on, off, off, on), a fresh verifier
+    and fresh caches each time: every verdict equal to the main path's
+    (held to the exact spec by `[main_path_check]`) and the block's result
+    equal to `[block]`'s. Reports the sentinel lanes per dispatch, the
+    tickets, and the verify and checksum kernels' launches of each run."""
+    from bitcoinconsensus_tpu_torch.crypto.torch_backend import TorchSecpVerifier
+    from bitcoinconsensus_tpu_torch.models.batch import verify_batch, verify_batch_stream
+    from bitcoinconsensus_tpu_torch.models.sigcache import ScriptExecutionCache, SigCache
+    from bitcoinconsensus_tpu_torch.ops import verdict_checksum as VC
+    from bitcoinconsensus_tpu_torch.ops import verify_tiles as VT
+
+    want = _verdicts(results)
+    size = len(items) // 5
+    batches = [items[k * size:(k + 1) * size] for k in range(5)]
+    connect, block_want, block_cfg = block_run
+    paths = {
+        "main_path": ({}, lambda v: _verdicts(verify_batch(
+            items, verifier=v, sig_cache=SigCache(), script_cache=ScriptExecutionCache())),
+            want),
+        "block": (block_cfg, connect, block_want),
+        "stream": ({}, lambda v: [r for out in verify_batch_stream(
+            iter(batches), verifier=v, sig_cache=SigCache(),
+            script_cache=ScriptExecutionCache(), depth=2) for r in _verdicts(out)],
+            want[:5 * size]),
+    }
+    try:
+        for path, (cfg, run, expect) in paths.items():
+            seen = {True: [], False: []}
+            for on in (True, False, False, True):
+                _set_checksum(on)
+                v = TorchSecpVerifier(device=device, **cfg)
+                sync()
+                vt0, vc0 = VT.verify_tiles.launches, VC.verdict_checksum.launches
+                t0 = time.perf_counter()
+                got = run(v)
+                sync()
+                dt = time.perf_counter() - t0
+                st = v.stats
+                seen[on].append(dict(
+                    s=dt, differing=int(got != expect) if path == "block" else
+                    sum(a != b for a, b in zip(got, expect, strict=True)),
+                    tickets=int(st["tickets"]), sentinels=int(st["sentinel_lanes"]),
+                    skipped=int(st["sentinel_skipped"]),
+                    verify=VT.verify_tiles.launches - vt0,
+                    checksum=VC.verdict_checksum.launches - vc0,
+                    anomalies=int(st["guard_anomalies"])))
+            runs = seen[True] + seen[False]
+            _line("guards", path=path, order="on,off,off,on",
+                  checksum_on_s=json.dumps([round(r["s"], 4) for r in seen[True]]),
+                  checksum_off_s=json.dumps([round(r["s"], 4) for r in seen[False]]),
+                  tickets=json.dumps([r["tickets"] for r in runs]),
+                  sentinel_lanes_per_dispatch=json.dumps(
+                      [round(r["sentinels"] / max(r["tickets"], 1), 2) for r in runs]),
+                  verify_launches=json.dumps([r["verify"] for r in runs]),
+                  checksum_launches_on=json.dumps([r["checksum"] for r in seen[True]]),
+                  checksum_launches_off=json.dumps([r["checksum"] for r in seen[False]]),
+                  differing=sum(r["differing"] for r in runs), tolerance=0,
+                  guard_anomalies=sum(r["anomalies"] for r in runs))
+            if any(r["differing"] or r["anomalies"] or r["skipped"]
+                   or r["sentinels"] < r["tickets"] or r["tickets"] < 1 for r in runs):
+                _fail(f"[guards] {path}: a verdict differs, a guard fired on a "
+                      "clean run, or a dispatch carried no sentinel lane")
+            if not rehearse and any(r["checksum"] != r["verify"] or r["verify"] < 1
+                                    for r in seen[True]) \
+                    or any(r["checksum"] for r in seen[False]):
+                _fail(f"[guards] {path}: the checksum kernel did not ride every "
+                      "dispatch with the checksum on, or ran with it off")
+    finally:
+        os.environ.pop("BITCOINCONSENSUS_TPU_CHECKSUM", None)
+
+
+CHAOS_KINDS = (
+    ("torch_backend.dispatch", ("raise", "timeout")),
+    ("torch_backend.verdict", ("invert", "flip", "value", "nan", "garbage", "shape")),
+    ("batch.dispatch", ("raise", "timeout")),
+    ("sigcache.sig", ("poison",)),
+)
+
+
+def _chaos_phase(items, corrupted, results, device, rehearse) -> None:
+    """`[chaos]`: one line per fault kind and port site, once transient (one
+    fire) and once persistent (64), in index mode, and in the wire driver too
+    for `batch.dispatch` and `sigcache.sig`, over the main path's first
+    2,000 inputs with its corrupted ones first, a fresh verifier and caches
+    each. What each must give:
+    - `torch_backend.*`: transient, the clean run's verdicts after a retry;
+      persistent, `DispatchFailed` caused by the fault (`VerdictAnomaly`,
+      `InjectedFault`, `InjectedTimeout`);
+    - `batch.dispatch`: the injected error raised with both caches empty,
+      and, transient, the caller's second call gives the clean verdicts;
+      persistent, it raises again;
+    - `sigcache.sig` (a fabricated hit), with the cache audit armed: the
+      clean verdicts, every poisoned hit on a false check caught.
+    No case may return an ACCEPT the clean run rejects (`wrong_accepts`)."""
+    from bitcoinconsensus_tpu_torch.crypto.torch_backend import TorchSecpVerifier
+    from bitcoinconsensus_tpu_torch.models.batch import verify_batch
+    from bitcoinconsensus_tpu_torch.models.sigcache import ScriptExecutionCache, SigCache
+    from bitcoinconsensus_tpu_torch.resilience import faults as F
+    from bitcoinconsensus_tpu_torch.resilience import guards as G
+    from bitcoinconsensus_tpu_torch.resilience.degrade import DispatchFailed
+
+    order = sorted(range(len(items)), key=lambda i: not corrupted[i])[:2000]
+    sub = [items[i] for i in order]
+    want = _verdicts([results[i] for i in order])
+    bad = []
+    n_lines = 0
+    t_phase = time.perf_counter()
+    for site, kinds in CHAOS_KINDS:
+        drivers = ("index", "wire") if site in ("batch.dispatch", "sigcache.sig") \
+            else ("index",)
+        for driver, kind, (regime, count) in (
+                (d, k, r) for d in drivers for k in kinds
+                for r in (("transient", 1), ("persistent", 64))):
+            os.environ["BITCOINCONSENSUS_TPU_IDX"] = "0" if driver == "wire" else "1"
+            v = TorchSecpVerifier(device=device)
+            sig, script = SigCache(), ScriptExecutionCache()
+            G.set_cache_audit(site == "sigcache.sig")
+            outcomes = []
+            try:
+                with F.inject(F.FaultPlan([F.FaultSpec(site, kind, count=count)]),
+                              seed=n_lines) as inj:
+                    for _ in range(2 if site == "batch.dispatch" else 1):
+                        try:
+                            got = _verdicts(verify_batch(sub, verifier=v, sig_cache=sig,
+                                                         script_cache=script))
+                            outcomes.append(("verdicts", got))
+                        except (DispatchFailed, F.InjectedFault) as e:
+                            outcomes.append(("raised", e, len(sig), len(script)))
+            finally:
+                G.set_cache_audit(False)
+                os.environ.pop("BITCOINCONSENSUS_TPU_IDX", None)
+            wrong = sum(g[0] and not w[0] for o in outcomes if o[0] == "verdicts"
+                        for g, w in zip(o[1], want, strict=True))
+            differing = sum(sum(g != w for g, w in zip(o[1], want, strict=True))
+                            for o in outcomes if o[0] == "verdicts")
+            raised = [o for o in outcomes if o[0] == "raised"]
+            cause = None
+            if raised:
+                e = raised[0][1]
+                cause = type(e.__cause__ if isinstance(e, DispatchFailed) else e).__name__
+            want_raise = {"torch_backend.verdict": "VerdictAnomaly",
+                          "torch_backend.dispatch": "InjectedTimeout" if kind == "timeout"
+                          else "InjectedFault",
+                          "batch.dispatch": "InjectedTimeout" if kind == "timeout"
+                          else "InjectedFault"}.get(site)
+            if site == "sigcache.sig":
+                held = (not raised and differing == 0
+                        and v.stats["cache_poison_caught"] >= 1)
+            elif site == "batch.dispatch":
+                first = raised and outcomes[0] is raised[0] and cause == want_raise \
+                    and raised[0][2] == raised[0][3] == 0
+                held = bool(first) and (
+                    (len(raised) == 1 and outcomes[1][0] == "verdicts"
+                     and differing == 0) if regime == "transient" else len(raised) == 2)
+            elif regime == "transient":
+                held = not raised and differing == 0 and v.stats["retries"] >= 1
+            else:
+                held = len(raised) == 1 and isinstance(raised[0][1], DispatchFailed) \
+                    and cause == want_raise
+            n_lines += 1
+            _line("chaos", site=site, kind=kind, regime=regime, driver=driver,
+                  fired=inj.total_fired(),
+                  outcome="+".join("verdicts" if o[0] == "verdicts"
+                                   else f"raised:{type(o[1]).__name__}" for o in outcomes),
+                  cause=cause, differing=differing, wrong_accepts=wrong,
+                  retries=int(v.stats["retries"]),
+                  guard_anomalies=int(v.stats["guard_anomalies"]),
+                  poison_caught=int(v.stats["cache_poison_caught"]), held=held)
+            if wrong or not held or inj.total_fired() < 1:
+                bad.append(f"{site}/{kind}/{regime}/{driver}")
+    _line("chaos", cases=n_lines, inputs=len(sub), corrupted=sum(not w[0] for w in want),
+          failed=len(bad), seconds=f"{time.perf_counter() - t_phase:.2f}")
+    if bad:
+        _fail("[chaos]: " + ", ".join(bad))
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -830,6 +1104,7 @@ def main() -> int:
     from bitcoinconsensus_tpu_torch.models.sigcache import ScriptExecutionCache, SigCache
     from bitcoinconsensus_tpu_torch.ops import _build
     from bitcoinconsensus_tpu_torch.ops import limbs as L
+    from bitcoinconsensus_tpu_torch.ops import verdict_checksum as VC
     from bitcoinconsensus_tpu_torch.ops import verify_tiles as VT
     from bitcoinconsensus_tpu_torch.utils import blockgen
 
@@ -851,12 +1126,13 @@ def main() -> int:
     if not rehearse:
         from concurrent.futures import ThreadPoolExecutor
 
-        sources = ("verify_tiles", "toy_kernels", _build.HOST_CORE, _build.VT_HOST)
+        sources = ("verify_tiles", "verdict_checksum", "toy_kernels", _build.HOST_CORE,
+                   _build.VT_HOST)
         with ThreadPoolExecutor(len(sources)) as pool:
             builds = list(pool.map(_build.build, sources))
         for name, built in zip(sources, builds):
-            what = dict(kernel=name) if name in ("verify_tiles", "toy_kernels") \
-                else dict(name=name)
+            what = dict(kernel=name) if name in (
+                "verify_tiles", "verdict_checksum", "toy_kernels") else dict(name=name)
             _line("build", **what, seconds=f"{built.seconds:.2f}",
                   library=os.path.relpath(built.path, HERE))
             for ln in built.log.splitlines():
@@ -866,6 +1142,9 @@ def main() -> int:
         _line("ptxas", kernel="vt_verify_kernel", **vt_ptxas,
               dynamic_smem=VT.VERIFY_TILES_CONTRACT.dynamic_smem_bytes(),
               build_s=f"{builds[0].seconds:.2f}")
+        _line("ptxas", kernel="vc_checksum_kernel",
+              **_ptxas(builds[1].log, "vc_checksum_kernel"),
+              build_s=f"{builds[1].seconds:.2f}")
 
     def sync():
         if device.type == "cuda":
@@ -881,17 +1160,25 @@ def main() -> int:
     if not any(corrupted):
         _fail("the data holds no corrupted input")
     path_launches = {}  # each path's kernel launches, counted around it alone
+    checksum_launches = {}  # and the verdict checksum kernel's
 
     def launches_around(path, fn):
-        """fn() with the launch count set to 0 just before it and read just
-        after; fails if the path never launched the kernel."""
+        """fn() with both kernels' launch counts set to 0 just before it and
+        read just after; fails if the path never launched the verify kernel,
+        or launched it without the checksum kernel on each dispatch."""
         sync()
         VT.verify_tiles.launches = 0
+        VC.verdict_checksum.launches = 0
         out = fn()
         sync()
         path_launches[path] = VT.verify_tiles.launches
+        checksum_launches[path] = VC.verdict_checksum.launches
         if not rehearse and path_launches[path] == 0:
             _fail(f"the {path} path never launched the verify_tiles kernel")
+        if not rehearse and checksum_launches[path] != path_launches[path]:
+            _fail(f"the {path} path launched the verdict checksum kernel "
+                  f"{checksum_launches[path]} times for {path_launches[path]} "
+                  "dispatches")
         return out
 
     def drive(path, engine, driver="index"):
@@ -1011,7 +1298,9 @@ def main() -> int:
         _fail("verify_batch verdicts disagree with the expected ones")
 
     _stream(items, results, device, sync, launches_around, rehearse)
-    _block(device, sync, launches_around, rehearse)
+    block_run = _block(device, sync, launches_around, rehearse)
+    _guards_phase(items, results, block_run, device, sync, rehearse)
+    _chaos_phase(items, corrupted, results, device, rehearse)
 
     # -- 4. lane packing, and the kernel against its plain version ---------------
     pack_checks = sent[:n_lanes]
@@ -1097,6 +1386,8 @@ def main() -> int:
         if err_w:
             _fail(f"kernel and plain version disagree at {width} lanes")
 
+    checksum = _checksum_phase(device, rng, rehearse)
+
     kernels = [{
         "name": "verify_tiles",
         "route": "cuda",
@@ -1110,6 +1401,15 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": "operations" if op_ms >= byte_ms else "bytes",
         "library_ms": None,
+    }, {
+        "name": "verdict_checksum",
+        "route": "cuda",
+        "source": "bitcoinconsensus_tpu_torch/csrc/verdict_checksum.cu",
+        "replaces": "bitcoinconsensus_tpu/crypto/jax_backend.py:379 (an XLA "
+                    "program of the reference, not a pallas_call)",
+        "launches": checksum_launches["main_path"],
+        "launches_by_path": checksum_launches,
+        **checksum,
     }]
 
     # -- 5. the kernel prover ----------------------------------------------------

@@ -25,7 +25,10 @@ from bitcoinconsensus_tpu_torch.models.batch import verify_batch
 from bitcoinconsensus_tpu_torch.models.sigcache import ScriptExecutionCache, SigCache
 from bitcoinconsensus_tpu_torch.ops import _build, launch
 from bitcoinconsensus_tpu_torch.ops import limbs as L
+from bitcoinconsensus_tpu_torch.ops import verdict_checksum as VC
 from bitcoinconsensus_tpu_torch.ops import verify_tiles as VT
+from bitcoinconsensus_tpu_torch.resilience import faults as F
+from bitcoinconsensus_tpu_torch.resilience.degrade import DispatchFailed
 from bitcoinconsensus_tpu_torch.ops.contract import run_contract
 from bitcoinconsensus_tpu_torch.utils import blockgen as B
 
@@ -389,11 +392,12 @@ def test_dispatch_lanes_returns_before_the_kernel_finishes():
     assert len(lanes[0]) == 32_768
     torch.cuda.synchronize()
     pending = v.dispatch_lanes(lanes, len(checks))
-    running = not pending.events[1].query()
+    kernel_end = pending.result.events[1]
+    running = not kernel_end.query()
     assert v.in_flight == 1
     ok, needs = v.sync_lanes(pending, len(checks))
     assert running, "dispatch_lanes waited for the kernel"
-    assert v.in_flight == 0 and pending.events[1].query()
+    assert v.in_flight == 0 and kernel_end.query()
     fixed = ok.copy()
     for i in np.nonzero(needs)[0]:
         fixed[i] = v._host_check(checks[i])
@@ -472,3 +476,56 @@ def test_single_check_wrappers_and_default_verifier_on_cuda():
     assert v.verify_ecdsa(*ecdsa) and v.verify_schnorr(*schnorr) and v.tweak_add_check(*tweak)
     bad = ecdsa[2][:-1] + bytes([ecdsa[2][-1] ^ 1])
     assert not v.verify_ecdsa(ecdsa[0], ecdsa[1], bad)
+
+
+# -- the guards on the card ---------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", [1, 31, 32, 33, 250, 251, 1023, 1024, 1025, 8192,
+                                   32768])
+def test_verdict_checksum_kernel_matches_plain_version(width):
+    _need_cuda()
+    rng = np.random.default_rng(width)
+    for ok in (rng.integers(0, 2, width).astype(bool), np.ones(width, bool)):
+        dev = torch.from_numpy(ok).cuda()
+        before = VC.verdict_checksum.launches
+        got = VC.verdict_checksum(dev)
+        assert VC.verdict_checksum.launches == before + 1
+        assert got.is_cuda and got.dtype == torch.int32
+        assert got.cpu().tolist() == VC.verdict_checksum_reference(dev).tolist()
+
+
+@pytest.mark.gpu
+def test_verdict_checksum_launcher_refuses_other_launches():
+    _need_cuda()
+    fn = launch.bind("verdict_checksum", "vc_verdict_checksum")
+    ok = torch.zeros(64, dtype=torch.bool, device="cuda")
+    out = torch.empty(2, dtype=torch.int32, device="cuda")
+    for grid, threads, n in ((2, 1024, 64), (1, 512, 64), (1, 1024, VC.MAX_LANES + 1)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            launch.call(fn, 0, ok.data_ptr(), out.data_ptr(), n, grid, threads)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("site,kind", [("torch_backend.verdict", "flip"),
+                                       ("torch_backend.verdict", "invert"),
+                                       ("torch_backend.dispatch", "raise")])
+def test_guarded_dispatch_on_cuda_absorbs_a_transient_fault(site, kind):
+    """Every dispatch carries sentinels and the checksum kernel; a transient
+    fault costs one retry on the same kernel, a persistent one raises."""
+    _need_cuda()
+    v = TorchSecpVerifier()
+    checks = _checks(40) + [_collision()]
+    want = TorchSecpVerifier(device="cpu").verify_checks(checks)
+    vt0, vc0 = VT.verify_tiles.launches, VC.verdict_checksum.launches
+    with F.inject(F.FaultPlan([F.FaultSpec(site, kind)]), seed=5):
+        got = v.verify_checks(checks)
+    assert np.array_equal(got, want) and v.stats["retries"] == 1
+    assert v.stats["tickets"] == 1 and v.stats["sentinel_lanes"] == 4
+    assert VC.verdict_checksum.launches - vc0 == VT.verify_tiles.launches - vt0 >= 1
+    with F.inject(F.FaultPlan([F.FaultSpec(site, kind, count=64)])):
+        with pytest.raises(DispatchFailed):
+            v.verify_checks(checks)
+    assert v.in_flight == 0
+    assert np.array_equal(v.verify_checks(checks), want)

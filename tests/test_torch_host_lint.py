@@ -97,13 +97,13 @@ def test_sync_rule_allows_only_the_named_seams(tmp_path):
             def __init__(self):
                 torch.cuda.synchronize()
 
-            def _settle(self, p):
+            def _materialize_guarded(self, p):
                 return p.cpu().numpy()
 
-            def sync_lanes(self, p):
-                return p.tolist()
+            def _prepare_ticket(self, p):
+                return p.numpy()
 
-            def dispatch_lanes(self, p):
+            def sync_lanes(self, p):
                 p.item()
                 event = torch.cuda.Event()
                 event.synchronize()
@@ -111,8 +111,26 @@ def test_sync_rule_allows_only_the_named_seams(tmp_path):
     found = hl.lint_paths([str(path)], rules=hl.SYNC_RULES)
     assert _found(found) == {("sync", 15), ("sync", 17)}
     assert set(hl.SYNC_ALLOWED_FUNCS) == {
-        "TorchSecpVerifier.sync_lanes", "TorchSecpVerifier._settle",
-        "TorchSecpVerifier.__init__"}
+        "TorchSecpVerifier._materialize_guarded", "settle_array",
+        "TorchSecpVerifier._prepare_ticket", "TorchSecpVerifier.__init__"}
+
+
+def test_sync_rule_covers_the_inflight_queue(tmp_path):
+    """A bare `.cpu()` planted in a copy of `resilience/inflight.py` is
+    flagged; `settle_array` may copy to the host, as in the reference."""
+    src = open(os.path.join(REPO, "bitcoinconsensus_tpu_torch", "resilience",
+                            "inflight.py"), encoding="utf-8").read()
+    anchor = "            self.stats[\"tickets\"] += 1\n"
+    assert src.count(anchor) == 1
+    planted = src.replace(anchor, anchor + "            args[0].cpu()\n")
+    line = planted[:planted.index("args[0].cpu()")].count("\n") + 1
+    path = tmp_path / "inflight.py"
+    path.write_text(planted)
+    found = hl.lint_paths([str(path)], rules=hl.SYNC_RULES)
+    assert _found(found) == {("sync", line)}
+    assert hl.lint_paths([os.path.join(REPO, "bitcoinconsensus_tpu_torch",
+                                       "resilience", "inflight.py")],
+                         rules=hl.SYNC_RULES) == []
 
 
 def test_cuda_scan_finds_recoders_and_their_callers(tmp_path):

@@ -60,6 +60,25 @@ def test_walk_covers_the_surface_and_analysis_modules():
         assert os.path.join("bitcoinconsensus_tpu_torch", mod) in rel
 
 
+def test_walk_covers_the_resilience_modules():
+    rel = {os.path.relpath(p, REPO) for p in _sources()}
+    for mod in ("resilience/__init__.py", "resilience/faults.py",
+                "resilience/guards.py", "resilience/degrade.py",
+                "resilience/inflight.py", "ops/verdict_checksum.py"):
+        assert os.path.join("bitcoinconsensus_tpu_torch", mod) in rel
+
+
+def test_resilience_exports_the_reference_names_but_the_ladder():
+    from bitcoinconsensus_tpu import resilience as ref
+
+    port = bitcoinconsensus_tpu_torch.resilience
+    assert "resilience" in bitcoinconsensus_tpu_torch.__all__
+    assert set(port.__all__) - {"DispatchFailed"} == set(ref.__all__) - {"Ladder"}
+    for name in port.__all__:
+        assert getattr(port, name) is not None, name
+    assert not hasattr(port, "Ladder")
+
+
 def test_all_covers_the_reference_surface():
     missing = set(bitcoinconsensus_tpu.__all__) - set(bitcoinconsensus_tpu_torch.__all__)
     assert not missing, missing
