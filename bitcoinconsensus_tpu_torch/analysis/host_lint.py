@@ -12,10 +12,11 @@ Those modules must be bit-exact, replayable functions of their inputs:
 - no `random` / `secrets` (verdicts must not depend on entropy),
 - no reading clocks (`time.time`, `datetime.now`, `time.perf_counter`, ...).
 
-The clock rule also runs alone over `crypto/` and `resilience/`. Until the
-port has `obs/`, the one sanctioned clock reader is `utils/profiling.py`
-(`Phases`, `accumulate`, `monotonic`): ad-hoc `time.perf_counter()` pairs
-must not drift in beside it.
+The clock rule also runs alone over `crypto/` and `resilience/`. The
+sanctioned clock readers are `obs/spans.py` (spans and `monotonic`) and
+`utils/profiling.py` (`Phases`, `accumulate`, `monotonic`), which times
+through it: ad-hoc `time.perf_counter()` pairs must not drift in beside
+them.
 
 The `sync` rule runs over `crypto/torch_backend.py` and
 `resilience/inflight.py`, the counterparts of the reference's
@@ -32,10 +33,19 @@ recoder-shaped function of `ops/`, `crypto/glv.py` and the `VT_FN`
 functions of `csrc/verify_tiles.cu` to be registered with the scalar-schedule
 prover (`scalar_check.REGISTERED_RECODERS`).
 
-Rules of the reference that wait: region coverage waits for `ops/regions.py`
-(with `obs/`); the `precision` and `pallas` rules have no torch or CUDA
-counterpart in the port today; the reference's `sync` targets `mesh.py`,
-`ingress.py` and `sigstore.py` wait for their modules.
+The region-coverage rule (`lint_kernel_regions`) requires every kernel the
+port can launch to map to a region of `ops/regions.KERNEL_REGIONS`, so that
+a capture (`obs/xprof.py`) charges its device time to a name: every
+`__global__` kernel of `csrc/*.cu`, every kernel a launcher launches, and
+the launcher of every `launch.bind(source, symbol)` in `ops/` and
+`analysis/kernel_check.py`. The reference traces each registry kernel's
+jaxpr for its name stack (`region_coverage`); a hand-written kernel has no
+name stack, one launch being one region, so the port's rule reads the
+sources.
+
+Rules of the reference that wait: the `precision` and `pallas` rules have no
+torch or CUDA counterpart in the port today; the reference's `sync` targets
+`mesh.py`, `ingress.py` and `sigstore.py` wait for their modules.
 
 Pure-AST checks (and a regex scan of the `.cu`): no imports of the scanned
 modules, so a syntax-valid file is lintable even when its dependencies are
@@ -362,4 +372,135 @@ def lint_scalar_recoders(repo_root: str = None, paths: Sequence[str] = None,
                 "it to analysis/scalar_check.REGISTERED_RECODERS mapped "
                 "to the target that certifies it (and extend the prover "
                 "if no target covers it yet)"))
+    return findings
+
+
+# -- kernel region coverage --------------------------------------------------
+#
+# Every kernel the port launches must map to a region of
+# `ops/regions.KERNEL_REGIONS`, or the xprof capture charges its device time
+# to `unattributed`. Read from the sources: the `__global__` kernels of each
+# `csrc/*.cu`, the kernels each `extern "C"` launcher (or launcher macro
+# instance) launches with `<<<`, and the launchers the wrappers bind.
+
+_GLOBAL = re.compile(
+    r"__global__\s+void\s+(?:__launch_bounds__\s*\([^)]*\)\s*)?(\w+)\s*\(")
+_EXTERN_C = re.compile(r'extern\s+"C"\s+int\s+([\w#]+)\s*\(')
+_LAUNCH = re.compile(r"([\w#]+)\s*<<<")
+_MACRO = re.compile(r"#define\s+(\w+)\(([^)]*)\)((?:[^\n]*\\\n)*[^\n]*)")
+
+
+def _line_of(text: str, pos: int) -> int:
+    return text.count("\n", 0, pos) + 1
+
+
+def cuda_launchers(text: str) -> Dict[str, Tuple[List[str], int]]:
+    """launcher symbol -> (kernels it launches, line) of a `.cu` source: each
+    `extern "C" int f(...)` body's `k<<<` launches, and each instance of a
+    launcher macro (`TK_LAUNCHER(positive, ...)`) with its `##` pasting and
+    its kernel parameter expanded."""
+    out: Dict[str, Tuple[List[str], int]] = {}
+    macros = {}
+    for m in _MACRO.finditer(text):
+        body = m.group(3)
+        params = [p.strip() for p in m.group(2).split(",")]
+        name = _EXTERN_C.search(body)
+        if name:
+            macros[m.group(1)] = (params, name.group(1), _LAUNCH.findall(body))
+    for m in _EXTERN_C.finditer(text):
+        if m.group(1) in {v[1] for v in macros.values()}:
+            continue  # the macro's own template, expanded below
+        out[m.group(1)] = (_LAUNCH.findall(_c_body(text, m.end())),
+                           _line_of(text, m.start()))
+    for macro, (params, name_t, launched) in macros.items():
+        for inst in re.finditer(rf"^{macro}\(([^)]*)\)", text, re.M):
+            args = [a.strip() for a in inst.group(1).split(",")]
+            env = dict(zip(params, args))
+
+            def expand(tok: str) -> str:
+                parts = [env.get(p, p) for p in tok.split("##")]
+                return env.get(tok, "".join(parts))
+
+            out[expand(name_t)] = ([expand(k) for k in launched],
+                                   _line_of(text, inst.start()))
+    return out
+
+
+def _bound_launchers(paths: Sequence[str]):
+    """(path, line, source, symbol) of every `launch.bind("source",
+    "symbol")` with constant arguments; an f-string symbol (the toys'
+    `f"tk_{kernel}"`) binds a launcher of that source's table, checked by
+    the source scan."""
+    out = []
+    for path in _files(paths):
+        with open(path, "r", encoding="utf-8") as fh:
+            try:
+                tree = ast.parse(fh.read(), filename=path)
+            except SyntaxError:
+                continue
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                    and node.func.attr == "bind" and len(node.args) == 2
+                    and all(isinstance(a, ast.Constant) for a in node.args)):
+                out.append((path, node.lineno, node.args[0].value,
+                            node.args[1].value))
+    return out
+
+
+def lint_kernel_regions(repo_root: str = None, sources: Dict[str, str] = None,
+                        wrappers: Sequence[str] = None,
+                        regions: Dict[str, str] = None) -> List[LintFinding]:
+    """One finding per kernel without a region: a `__global__` kernel of a
+    `.cu` source, or a kernel a launcher launches, missing from `regions`
+    (`ops/regions.KERNEL_REGIONS`); a wrapper binding a launcher its
+    source does not define; a region entry naming no kernel of any source.
+    `sources` (name -> text), `wrappers` (paths) and `regions` override the
+    tree (the negative-fixture tests feed an unmapped kernel through the
+    same gate); the stale-entry check runs over the tree's sources only."""
+    if regions is None:
+        from ..ops.regions import KERNEL_REGIONS as regions
+    whole_tree = sources is None
+    if sources is None:
+        csrc = os.path.join(_pkg(repo_root), "csrc")
+        sources = {}
+        for f in sorted(os.listdir(csrc)):
+            if f.endswith(".cu"):
+                with open(os.path.join(csrc, f), "r", encoding="utf-8") as fh:
+                    sources[f[:-3]] = fh.read()
+    if wrappers is None:
+        pkg = _pkg(repo_root)
+        wrappers = [os.path.join(pkg, "ops"),
+                    os.path.join(pkg, "analysis", "kernel_check.py")]
+    findings: List[LintFinding] = []
+    defined = set()
+    launchers_by_source = {}
+    for name, text in sources.items():
+        path = f"csrc/{name}.cu"
+        for m in _GLOBAL.finditer(text):
+            defined.add(m.group(1))
+            if m.group(1) not in regions:
+                findings.append(LintFinding(
+                    path, _line_of(text, m.start()), "region",
+                    f"kernel `{m.group(1)}` has no region in "
+                    "ops/regions.KERNEL_REGIONS: a capture would charge its "
+                    "device time to `unattributed`"))
+        launchers = cuda_launchers(text)
+        launchers_by_source[name] = launchers
+        for launcher, (kernels, line) in launchers.items():
+            for k in kernels:
+                if k not in regions:
+                    findings.append(LintFinding(
+                        path, line, "region",
+                        f"launcher `{launcher}` launches `{k}`, which has no "
+                        "region in ops/regions.KERNEL_REGIONS"))
+    for path, line, source, symbol in _bound_launchers(wrappers):
+        if symbol not in launchers_by_source.get(source, {}):
+            findings.append(LintFinding(
+                path, line, "region",
+                f"binds `{symbol}` of csrc/{source}.cu, which defines no such "
+                "launcher: the kernel it launches cannot be mapped to a region"))
+    for k in sorted(set(regions) - defined) if whole_tree else ():
+        findings.append(LintFinding(
+            "ops/regions.py", 0, "region",
+            f"KERNEL_REGIONS maps `{k}`, which no csrc/*.cu defines"))
     return findings

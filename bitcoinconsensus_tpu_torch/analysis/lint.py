@@ -36,16 +36,16 @@ violation. Exit 0 if and only if all hold.
 
 `--host` is the host lint (`analysis/host_lint.py`): the float,
 nondeterminism and clock rules over `core/` and `models/`, the clock rule
-over `crypto/`, the sync rule over `crypto/torch_backend.py`, and scalar
-coverage over `ops/`, `crypto/glv.py` and `csrc/verify_tiles.cu`. Exit 0 if
-and only if it finds nothing.
+over `crypto/`, the sync rule over `crypto/torch_backend.py`, scalar
+coverage over `ops/`, `crypto/glv.py` and `csrc/verify_tiles.cu`, and region
+coverage (every kernel of `csrc/*.cu` mapped in `ops/regions.py`). Exit 0
+if and only if it finds nothing.
 
-Not here yet, each with the module it waits for: the region-coverage rule
-(`ops/regions.py`, with `obs/`); the reference's `precision` and `pallas`
-rules (no torch or CUDA counterpart in the port today); the `sync` rule over
-`mesh.py`, `inflight.py`, `ingress.py` and `sigstore.py`; the
+Not here yet, each with the module it waits for: the reference's
+`precision` and `pallas` rules (no torch or CUDA counterpart in the port
+today); the `sync` rule over `mesh.py`, `ingress.py` and `sigstore.py`; the
 `sha256.bytes_from_words` and `curve.double_scalar_mult(_glv)` schedule
-targets; and the certificate counter of `--schedule` (with `obs/`).
+targets.
 """
 
 from __future__ import annotations
@@ -169,6 +169,8 @@ def _host() -> int:
     print("\n== scalar-recoder coverage (ops/, crypto/glv.py, "
           "csrc/verify_tiles.cu) ==")
     findings += host_lint.lint_scalar_recoders(repo)
+    print("\n== kernel region coverage (csrc/*.cu, the launchers bound in ops/) ==")
+    findings += host_lint.lint_kernel_regions(repo)
     for f in findings:
         print(f"  {f}")
     print(f"\nhost lint: {len(findings)} findings")
@@ -188,6 +190,7 @@ def _schedule(args, registry, scalar_check) -> int:
         t0 = time.perf_counter()
         cert = spec.certify(quick=args.quick)
         dt = time.perf_counter() - t0
+        scalar_check.emit_certificates([cert])
         print(f"  {spec.name:32s} {cert.status}  facts={len(cert.facts)}  "
               f"({dt:.1f}s)", flush=True)
         for f in cert.failures[:8]:

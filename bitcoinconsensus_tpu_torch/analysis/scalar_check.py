@@ -1608,10 +1608,33 @@ def certify(name: str, quick: bool = False) -> CertResult:
         return CertResult(name, "FAIL", {}, [f"{type(e).__name__}: {e}"])
 
 
+_CERT_COUNTER = None
+
+
+def emit_certificates(results: List[CertResult]) -> None:
+    """Count each certificate in `consensus_scalar_certificates{target,
+    status}` (registered at the first call)."""
+    global _CERT_COUNTER
+    if _CERT_COUNTER is None:
+        from ..obs import counter
+        _CERT_COUNTER = counter(
+            "consensus_scalar_certificates",
+            "Scalar-schedule prover certificates by target and status",
+            ("target", "status"))
+    for r in results:
+        _CERT_COUNTER.inc(target=r.name, status=r.status)
+
+
 def certify_all(quick: bool = False,
+                emit_metrics: bool = True,
                 include_heavy: bool = True) -> List[CertResult]:
-    return [certify(n, quick=quick)
-            for n in all_targets(include_heavy=include_heavy)]
+    """Every target's certificate, each counted by `emit_certificates`
+    unless `emit_metrics` is False."""
+    results = [certify(n, quick=quick)
+               for n in all_targets(include_heavy=include_heavy)]
+    if emit_metrics:
+        emit_certificates(results)
+    return results
 
 
 # --------------------------------------------------------------------------

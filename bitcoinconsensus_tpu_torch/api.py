@@ -10,6 +10,13 @@ ABI shim (`script/bitcoinconsensus.cpp:74-129`: flags → deserialize → index
 runs the Python engine, `core/` with the `crypto/secp_host.py` oracle, the
 spec both are held to. The batched device path is
 `models/batch.verify_batch`, held bit-identical to this module.
+
+Telemetry, as in the reference: every entry point counts its calls in
+`consensus_verify_calls_total{entry}` and runs inside the span
+`api.<entry>`; a rejection counts in `consensus_verify_reject_total{code}`
+and, for a script failure, `consensus_script_reject_total{script_error}`
+(`_record_reject`; the batch drivers count their rejections in the same
+two counters).
 """
 
 from __future__ import annotations
@@ -31,6 +38,8 @@ from .core.script_error import ScriptError
 from .core.serialize import SerializationError
 from .core.sighash import PrecomputedTxData
 from .core.tx import Tx, TxOut
+from .obs import counter as _obs_counter
+from .obs import span as _span
 
 __all__ = [
     "Error",
@@ -45,6 +54,26 @@ __all__ = [
 ]
 
 API_VERSION = 1  # bitcoinconsensus.h:36 BITCOINCONSENSUS_API_VER
+
+_VERIFY_CALLS = _obs_counter(
+    "consensus_verify_calls_total", "verify* entry-point calls", ("entry",)
+)
+_VERIFY_REJECTS = _obs_counter(
+    "consensus_verify_reject_total",
+    "verify rejections by transport Error code (api + batch paths)",
+    ("code",),
+)
+_SCRIPT_REJECTS = _obs_counter(
+    "consensus_script_reject_total",
+    "script-level rejections by ScriptError code (api + batch paths)",
+    ("script_error",),
+)
+
+
+def _record_reject(exc: "ConsensusError") -> None:
+    _VERIFY_REJECTS.inc(code=exc.code.name)
+    if exc.script_error is not None and exc.script_error != ScriptError.OK:
+        _SCRIPT_REJECTS.inc(script_error=exc.script_error.name)
 
 
 class Error(enum.IntEnum):
@@ -151,6 +180,17 @@ def _verify_input(
         raise ConsensusError(Error.ERR_SCRIPT, script_err)
 
 
+def _verify_entry(entry: str, *args, **kwargs) -> None:
+    """`_verify_input` counted and spanned as entry point `entry`."""
+    _VERIFY_CALLS.inc(entry=entry)
+    with _span(f"api.{entry}"):
+        try:
+            _verify_input(*args, **kwargs)
+        except ConsensusError as e:
+            _record_reject(e)
+            raise
+
+
 def verify(
     spent_output: bytes,
     amount: int,
@@ -161,9 +201,9 @@ def verify(
 ) -> None:
     """verify() (src/lib.rs:103-111): VERIFY_ALL under libconsensus flags.
     Raises ConsensusError on failure; returns None on success."""
-    _verify_input(spent_output, amount, spending_transaction, input_index,
-                  VERIFY_ALL_LIBCONSENSUS, allowed_flags=LIBCONSENSUS_FLAGS,
-                  engine=engine)
+    _verify_entry("verify", spent_output, amount, spending_transaction,
+                  input_index, VERIFY_ALL_LIBCONSENSUS,
+                  allowed_flags=LIBCONSENSUS_FLAGS, engine=engine)
 
 
 def verify_with_flags(
@@ -177,9 +217,9 @@ def verify_with_flags(
 ) -> None:
     """verify_with_flags (src/lib.rs:113-139): only libconsensus flag bits
     are accepted, as in the reference C ABI."""
-    _verify_input(spent_output_script, amount, spending_transaction,
-                  input_index, flags, allowed_flags=LIBCONSENSUS_FLAGS,
-                  engine=engine)
+    _verify_entry("verify_with_flags", spent_output_script, amount,
+                  spending_transaction, input_index, flags,
+                  allowed_flags=LIBCONSENSUS_FLAGS, engine=engine)
 
 
 def verify_with_spent_outputs(
@@ -194,8 +234,12 @@ def verify_with_spent_outputs(
     is a sequence of (amount, scriptPubKey), one per input."""
     outs = [TxOut(amt, spk) for amt, spk in spent_outputs]
     if input_index < 0 or input_index >= len(outs):
-        raise ConsensusError(Error.ERR_TX_INDEX)
-    _verify_input(
+        _VERIFY_CALLS.inc(entry="verify_with_spent_outputs")
+        exc = ConsensusError(Error.ERR_TX_INDEX)
+        _record_reject(exc)
+        raise exc
+    _verify_entry(
+        "verify_with_spent_outputs",
         outs[input_index].script_pubkey,
         outs[input_index].value,
         spending_transaction,

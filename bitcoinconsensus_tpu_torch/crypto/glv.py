@@ -7,13 +7,16 @@ c1 = round(b2·k/n), c2 = round(-b1·k/n), k2 = -(c1·b1 + c2·b2),
 k1 = k - k2·lambda. Python ints make the rounding exact.
 
 The device half of the scheme is the signed-window ladder of
-`ops/verify_tiles.py` and `csrc/verify_tiles.cu`.
+`ops/verify_tiles.py` and `csrc/verify_tiles.cu`. A half escaping the
+proven bound counts in `consensus_glv_split_range_total{half}` before
+`SplitRangeError` is raised.
 """
 
 from __future__ import annotations
 
 from typing import Tuple
 
+from ..obs import counter
 from .secp_host import N
 
 __all__ = ["split_lambda", "SplitRangeError", "LAMBDA"]
@@ -23,6 +26,12 @@ LAMBDA = 0x5363AD4CC05C30E0A5261C028812645A122E22EA20816678DF02967C1B23BD72
 
 _B1 = -0xE4437ED6010E88286F547FA90ABFE4C3
 _B2 = 0x3086D221A7D46BCDE86C90E49284EB15
+
+_SPLIT_RANGE = counter(
+    "consensus_glv_split_range_total",
+    "GLV split produced a half >= 2^128 — the lattice certificate "
+    "(analysis/scalar_check.py glv.split_lambda) is violated at runtime",
+    ("half",))
 
 
 class SplitRangeError(ValueError):
@@ -55,5 +64,9 @@ def split_lambda(k: int) -> Tuple[int, int, int, int]:
     a1 = N - k1 if neg1 else k1
     a2 = N - k2 if neg2 else k2
     if a1 >= 1 << 128 or a2 >= 1 << 128:
+        if a1 >= 1 << 128:
+            _SPLIT_RANGE.inc(half="k1")
+        if a2 >= 1 << 128:
+            _SPLIT_RANGE.inc(half="k2")
         raise SplitRangeError(k, a1, a2)
     return a1, int(neg1), a2, int(neg2)

@@ -31,6 +31,14 @@ and at settle validates the verdict buffers, the sentinels and the
 checksum before a verdict is returned. A failed guard or launch is
 retried on the same kernel within the budget (`resilience/degrade.py`)
 and then raises `DispatchFailed`; nothing falls back to the host.
+
+Telemetry, as in the reference (`obs/`): checks by kind, dispatches by
+backend (`cuda` for the kernel, `torch` for the plain version on the CPU),
+real and padded lanes, the last dispatch's fill ratio, dispatches at a
+padded width new to the verifier (each stages new pinned buffers on a
+card), and host fixups. Each launch runs inside `region_scope("dispatch")`
+and each settle inside `region_scope("settle")`, so a capture
+(`obs/xprof.py`) sees the kernels under the seam that launched them.
 """
 
 from __future__ import annotations
@@ -44,7 +52,10 @@ import numpy as np
 import torch
 
 from .. import native_bridge
+from ..obs import counter as _obs_counter
+from ..obs import gauge as _obs_gauge
 from ..ops.limbs import P_INT
+from ..ops.regions import region_scope
 from ..ops.curve import G_X
 from ..ops.verdict_checksum import verdict_checksum
 from ..ops.verify_tiles import verify_tiles
@@ -59,6 +70,34 @@ from .glv import split_lambda
 from .secp_host import N, parse_der_lax
 
 __all__ = ["SigCheck", "TorchSecpVerifier", "default_verifier"]
+
+_CHECKS_TOTAL = _obs_counter(
+    "consensus_checks_total", "deferred curve checks by kind", ("kind",)
+)
+_DISPATCH_TOTAL = _obs_counter(
+    "consensus_dispatch_total", "device dispatches by backend", ("backend",)
+)
+_DISPATCH_LANES = _obs_counter(
+    "consensus_dispatch_lanes_total", "real (unpadded) lanes dispatched"
+)
+_DISPATCH_PADDED = _obs_counter(
+    "consensus_dispatch_padded_lanes_total",
+    "padded lanes dispatched (pad ladder fill)",
+)
+_DISPATCH_FILL = _obs_gauge(
+    "consensus_dispatch_fill_ratio",
+    "real/padded lane ratio of the most recent dispatch",
+)
+_NEW_SHAPES = _obs_counter(
+    "consensus_dispatch_new_shapes_total",
+    "dispatches at a padded width new to their verifier (on a card: new "
+    "pinned staging and result buffers)",
+)
+# Shared with models/batch.py's index-mode settle.
+HOST_FIXUPS = _obs_counter(
+    "consensus_host_fixup_total",
+    "exceptional device lanes resolved exactly on host",
+)
 
 
 class SigCheck:
@@ -289,6 +328,7 @@ class TorchSecpVerifier:
         self.device = torch.device(device)
         self.stats: Dict[str, float] = defaultdict(float)
         self.phases = Phases()
+        self._seen_shapes: set = set()
         # The guards: the device checksum rides every dispatch unless
         # BITCOINCONSENSUS_TPU_CHECKSUM is 0 or off; the queue's depth bounds
         # how far a caller runs ahead, its deadline how long a ticket retries.
@@ -433,27 +473,40 @@ class TorchSecpVerifier:
         or None)."""
         _faults.maybe_raise("torch_backend.dispatch")
         self.stats["dispatches"] += 1
-        if self.device.type != "cuda":
-            ok, needs = verify_tiles(*host)
-            aux = verdict_checksum(ok.contiguous()) if self._checksum else None
-            return _Launched(ok, needs), aux
-        dev = tuple(t.to(self.device, non_blocking=True) for t in host)
-        stream = torch.cuda.current_stream(self.device)
-        events = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-        events[0].record(stream)
-        ok, needs = verify_tiles(*dev)
-        events[1].record(stream)
-        outs = [ok, needs]
-        if self._checksum:
-            outs.append(verdict_checksum(ok))
-        back = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in outs]
-        for h, t in zip(back, outs):
-            h.copy_(t, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(stream)
-        return (_Launched(back[0], back[1], events, done),
-                back[2] if self._checksum else None)
+        self._note_dispatch(int(host[0].shape[0]), n)
+        with region_scope("dispatch"):
+            if self.device.type != "cuda":
+                ok, needs = verify_tiles(*host)
+                aux = verdict_checksum(ok.contiguous()) if self._checksum else None
+                return _Launched(ok, needs), aux
+            dev = tuple(t.to(self.device, non_blocking=True) for t in host)
+            stream = torch.cuda.current_stream(self.device)
+            events = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            events[0].record(stream)
+            ok, needs = verify_tiles(*dev)
+            events[1].record(stream)
+            outs = [ok, needs]
+            if self._checksum:
+                outs.append(verdict_checksum(ok))
+            back = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in outs]
+            for h, t in zip(back, outs):
+                h.copy_(t, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(stream)
+            return (_Launched(back[0], back[1], events, done),
+                    back[2] if self._checksum else None)
+
+    def _note_dispatch(self, padded: int, n: int) -> None:
+        """Dispatch accounting, once per launch (a relaunch counts again)."""
+        _DISPATCH_TOTAL.inc(backend="cuda" if self.device.type == "cuda" else "torch")
+        _DISPATCH_LANES.inc(n)
+        _DISPATCH_PADDED.inc(padded)
+        if padded:
+            _DISPATCH_FILL.set(n / padded)
+        if padded not in self._seen_shapes:
+            self._seen_shapes.add(padded)
+            _NEW_SHAPES.inc()
 
     def _materialize_guarded(self, ticket: Ticket):
         """The settle seam, the one place a dispatch's verdicts reach the
@@ -462,21 +515,22 @@ class TorchSecpVerifier:
         `torch_backend.verdict` fault hook) and `needs`, the sentinels, and
         the device checksum against the sums of the `ok` received. Returns
         padded (ok, needs) bool arrays; raises `VerdictAnomaly`."""
-        res = ticket.result
-        if res.done is not None:
-            with accumulate(self.stats, "device_wait_s"):
-                res.done.synchronize()
-        padded = int(ticket.args[0].shape[0])
-        ok_raw = _faults.corrupt_verdict("torch_backend.verdict", res.ok.numpy())
-        ok = _guards.validate_verdict(ok_raw, padded, self._SITE)
-        needs = _guards.validate_verdict(res.needs.numpy(), padded, self._SITE)
-        _guards.check_sentinels(ticket.sset, ok, needs, self._SITE)
-        if ticket.aux is not None:
-            sums = ticket.aux.numpy()
-            _guards.check_checksum((int(sums[0]), int(sums[1])), ok, self._SITE)
-        if res.events is not None:
-            self.stats["kernel_ms"] += res.events[0].elapsed_time(res.events[1])
-        return ok, needs
+        with region_scope("settle"):
+            res = ticket.result
+            if res.done is not None:
+                with accumulate(self.stats, "device_wait_s"):
+                    res.done.synchronize()
+            padded = int(ticket.args[0].shape[0])
+            ok_raw = _faults.corrupt_verdict("torch_backend.verdict", res.ok.numpy())
+            ok = _guards.validate_verdict(ok_raw, padded, self._SITE)
+            needs = _guards.validate_verdict(res.needs.numpy(), padded, self._SITE)
+            _guards.check_sentinels(ticket.sset, ok, needs, self._SITE)
+            if ticket.aux is not None:
+                sums = ticket.aux.numpy()
+                _guards.check_checksum((int(sums[0]), int(sums[1])), ok, self._SITE)
+            if res.events is not None:
+                self.stats["kernel_ms"] += res.events[0].elapsed_time(res.events[1])
+            return ok, needs
 
     def verify_checks(self, checks: Sequence[SigCheck]) -> np.ndarray:
         """Verify a mixed batch; returns a bool array aligned with `checks`:
@@ -502,6 +556,11 @@ class TorchSecpVerifier:
         """The asynchronous half of `verify_checks`: prep, pack and dispatch
         every chunk; returns a handle for `verify_checks_finish` without
         waiting for the device."""
+        kinds: Dict[str, int] = {}
+        for c in checks:
+            kinds[c.kind] = kinds.get(c.kind, 0) + 1
+        for k, cnt in kinds.items():
+            _CHECKS_TOTAL.inc(cnt, kind=k)
         pending = []
         cap = self.lane_capacity
         for start in range(0, len(checks), cap):
@@ -529,8 +588,11 @@ class TorchSecpVerifier:
             out[start : start + count] = ok[:count]
             # Exceptional group-law lanes (crafted scalar collisions): the
             # fast device adds deferred them; resolve exactly on the host.
+            fix = np.nonzero(needs[:count])[0]
+            if len(fix):
+                HOST_FIXUPS.inc(len(fix))
             with accumulate(self.stats, "fixup_s"):
-                for i in np.nonzero(needs[:count])[0]:
+                for i in fix:
                     out[start + int(i)] = self._host_check(checks[start + int(i)])
                     self.stats["fixups"] += 1
         return out

@@ -43,6 +43,22 @@ on the host instead): nothing of that dispatch enters either cache. With
 `resilience.set_cache_audit(True)` both drivers re-verify every sig-cache hit
 on the exact host oracle and discard an entry proven wrong
 (`stats["cache_poison_caught"]` of the verifier).
+
+Telemetry (`obs/`, the reference's names): batch sizes and items, results
+by outcome, rejections by `Error` and `ScriptError` (shared with the api),
+fixpoint rounds, exact fallbacks, deduplicated checks, host fixups and the
+stream's window, each incremented by batch totals, never once per input.
+Spans, per batch or per round: `batch.verify_batch`, `batch.prepare`,
+`batch.probe` (with `batch.probe_parts`, `batch.probe_keys` and
+`batch.probe_lookup`), `batch.interpret` (with `batch.interpret_args`, the
+argument lists, around the verifier's `interpret` phase), `batch.resolve`
+(with `batch.uniq_keys`, `batch.sig_probe`, `batch.sig_cache_insert` and
+`batch.publish` in index mode), `batch.assemble` (with `batch.results` and
+`batch.script_cache_insert`), `batch.accept` (the fixpoint's acceptance of
+a round's verdicts), `batch.release` (index mode's native handles and prep
+records freed), `batch.stream_begin` and `batch.stream_finish`; the
+collector's sweep at the end of a paused section is `gc.sweep`. This module reads no clock: every span times
+through `obs/spans.py`.
 """
 
 from __future__ import annotations
@@ -61,8 +77,13 @@ from ..core.script_error import ScriptError
 from ..core.serialize import SerializationError
 from ..core.sighash import PrecomputedTxData
 from ..core.tx import Tx, TxOut
+from ..crypto.torch_backend import HOST_FIXUPS as _HOST_FIXUPS
 from ..crypto.torch_backend import SigCheck, TorchSecpVerifier, default_verifier
 from ..native_bridge import NativeSession, NativeTx
+from ..obs import counter as _obs_counter
+from ..obs import gauge as _obs_gauge
+from ..obs import histogram as _obs_histogram
+from ..obs import span as _span
 from ..resilience import faults as _faults
 from ..resilience import guards as _guards
 from ..utils.gcpause import gc_paused
@@ -85,6 +106,70 @@ __all__ = [
 ]
 
 MAX_ROUNDS = 24  # > MAX_PUBKEYS_PER_MULTISIG cursor retries
+
+# Batch-driver telemetry, integer-valued (the host lint bans float
+# literals here).
+_BATCH_SIZE = _obs_histogram(
+    "consensus_batch_size",
+    "items per verify_batch call",
+    buckets=(1, 8, 64, 512, 4096, 32768),
+)
+_BATCH_ITEMS = _obs_counter(
+    "consensus_batch_items_total", "inputs submitted to verify_batch"
+)
+_BATCH_RESULTS = _obs_counter(
+    "consensus_batch_results_total",
+    "verify_batch results by outcome",
+    ("outcome",),
+)
+_STREAM_WINDOW = _obs_gauge(
+    "consensus_pipeline_stream_window",
+    "stream handles concurrently in flight in verify_batch_stream "
+    "(begun, not yet finished) — the pipeline's realized overlap depth",
+)
+_FIXPOINT_ROUNDS = _obs_histogram(
+    "consensus_fixpoint_rounds",
+    "oracle re-interpretation rounds needed per batch fixpoint",
+    buckets=(1, 2, 3, 4, 6, 8, 12, 24),
+)
+_EXACT_FALLBACK = _obs_counter(
+    "consensus_exact_fallback_total",
+    "inputs resolved by the exact host checker at the round cap",
+)
+_UNIQ_CHECKS = _obs_counter(
+    "consensus_uniq_checks_total",
+    "deduplicated curve checks discovered (uniq-list growth, index mode)",
+)
+# Shared with the api's entry points (one registry name, one view).
+_VERIFY_REJECTS = _obs_counter(
+    "consensus_verify_reject_total",
+    "verify rejections by transport Error code (api + batch paths)",
+    ("code",),
+)
+_SCRIPT_REJECTS = _obs_counter(
+    "consensus_script_reject_total",
+    "script-level rejections by ScriptError code (api + batch paths)",
+    ("script_error",),
+)
+
+
+def _record_batch_results(out: List["BatchResult"]) -> None:
+    """Publish a batch's result counters once, by totals: the rejections
+    (a small share) are grouped by code, the rest counted as one."""
+    bad = [r for r in out if not r.ok]
+    if len(out) > len(bad):
+        _BATCH_RESULTS.inc(len(out) - len(bad), outcome="ok")
+    rejects: Dict[Tuple[str, Optional[str]], int] = {}
+    for r in bad:
+        serr = (r.script_error.name if r.script_error is not None
+                and r.script_error != ScriptError.OK else None)
+        key = (r.error.name, serr)
+        rejects[key] = rejects.get(key, 0) + 1
+    for (code, serr), n in rejects.items():
+        _BATCH_RESULTS.inc(n, outcome="reject")
+        _VERIFY_REJECTS.inc(n, code=code)
+        if serr is not None:
+            _SCRIPT_REJECTS.inc(n, script_error=serr)
 
 
 @dataclass
@@ -304,28 +389,34 @@ def _prepare_and_probe(items: Sequence[BatchItem],
     txdata_cache: Dict[Tuple, PrecomputedTxData] = {}
     spent_memo: Dict[int, Tuple] = {}
     ntx_cache: Optional[Dict] = {} if native else None
-    preps = [_prepare(item, tx_cache, txdata_cache, spent_memo, ntx_cache)
-             for item in items]
+    with _span("batch.prepare", n=len(items)):
+        preps = [_prepare(item, tx_cache, txdata_cache, spent_memo, ntx_cache)
+                 for item in items]
     script_keys: List[Optional[bytes]] = [None] * len(items)
-    probe_idx: List[int] = []
-    probe_parts: List[Tuple[bytes, ...]] = []
-    for idx, (item, prep) in enumerate(zip(items, preps, strict=True)):
-        if prep.result is not None:
-            continue
-        if item.spent_outputs is not None:
-            digest = _spent_memo_entry(item, spent_memo)[1]
-        else:
-            digest = ScriptExecutionCache.spent_digest(
-                [(item.amount, item.spent_output_script or b"")]
-            )
-        probe_idx.append(idx)
-        probe_parts.append(ScriptExecutionCache._parts(
-            prep.wtxid, item.input_index, item.flags, digest))
-    for idx, key in zip(probe_idx, script_cache.keys_for_parts(probe_parts, engine),
-                        strict=True):
-        script_keys[idx] = key
-        if script_cache.contains_key(key):
-            preps[idx].result = BatchResult.success()
+    with _span("batch.probe"):
+        probe_idx: List[int] = []
+        probe_parts: List[Tuple[bytes, ...]] = []
+        with _span("batch.probe_parts"):
+            for idx, (item, prep) in enumerate(zip(items, preps, strict=True)):
+                if prep.result is not None:
+                    continue
+                if item.spent_outputs is not None:
+                    digest = _spent_memo_entry(item, spent_memo)[1]
+                else:
+                    digest = ScriptExecutionCache.spent_digest(
+                        [(item.amount, item.spent_output_script or b"")]
+                    )
+                probe_idx.append(idx)
+                probe_parts.append(ScriptExecutionCache._parts(
+                    prep.wtxid, item.input_index, item.flags, digest))
+        with _span("batch.probe_keys"):
+            keys = script_cache.keys_for_parts(probe_parts, engine)
+        with _span("batch.probe_lookup"):
+            hits = script_cache.contains_keys(keys)
+            for idx, key, hit in zip(probe_idx, keys, hits, strict=True):
+                script_keys[idx] = key
+                if hit:
+                    preps[idx].result = BatchResult.success()
     return nsess, preps, script_keys
 
 
@@ -346,8 +437,12 @@ def verify_batch(
     digests in the native host core, which must build and load or this
     raises; `engine="python"` runs the Python engine, the spec, and needs a
     verifier of the same engine."""
-    with gc_paused():
-        return _verify_batch(items, verifier, sig_cache, script_cache, engine)
+    _BATCH_SIZE.observe(len(items))
+    _BATCH_ITEMS.inc(len(items))
+    with _span("batch.verify_batch", n=len(items)), gc_paused():
+        out = _verify_batch(items, verifier, sig_cache, script_cache, engine)
+    _record_batch_results(out)
+    return out
 
 
 def _defaults(verifier, sig_cache, script_cache, engine: str, caller: str):
@@ -387,8 +482,13 @@ def _verify_batch(items, verifier, sig_cache, script_cache, engine):
 
     nsess, preps, script_keys = _prepare_and_probe(items, script_cache, engine)
     if _idx_ready(nsess, preps):
-        return _verify_batch_idx(items, preps, nsess, verifier, sig_cache,
-                                 script_cache, script_keys)
+        out = _verify_batch_idx(items, preps, nsess, verifier, sig_cache,
+                                script_cache, script_keys)
+        # The batch's native handles and prep records, freed in a span of
+        # their own: each NativeTx and the session free their C++ state.
+        with _span("batch.release"):
+            del preps, nsess
+        return out
     known: Dict[Tuple, bool] = {}
 
     def interpret(idxs: Sequence[int]) -> List[Tuple[bool, ScriptError, int, List[SigCheck]]]:
@@ -425,7 +525,9 @@ def _verify_batch(items, verifier, sig_cache, script_cache, engine):
 
     # Phase 1: optimistic interpretation, recording curve checks.
     live = [idx for idx, prep in enumerate(preps) if prep.result is None]
-    for idx, (ok, err, _unk, checks) in zip(live, interpret(live), strict=True):
+    with _span("batch.interpret", n=len(live)):
+        interpreted = interpret(live)
+    for idx, (ok, err, _unk, checks) in zip(live, interpreted, strict=True):
         preps[idx].optimistic = (ok, err)
         preps[idx].checks = checks
 
@@ -451,37 +553,42 @@ def _verify_batch(items, verifier, sig_cache, script_cache, engine):
     def resolve(checks: Sequence[SigCheck]) -> None:
         """Fill `known` for every check: sig-cache probe, then ONE
         deduplicated device dispatch; successes feed the cache."""
-        todo: List[SigCheck] = []
-        for chk in checks:
-            key = (chk.kind, chk.data)
-            if key in known:
-                continue
-            known[key] = False  # placeholder until probed/dispatched
-            todo.append(chk)
-        if todo:
-            fresh: List[Tuple[SigCheck, bytes]] = []
-            audit = _guards.audit_cache_hits()
-            for chk, ck in zip(todo, sig_cache.keys_for_checks(todo, engine),
-                               strict=True):
-                if sig_cache.contains_key(ck):
-                    # Audit: a hit certifies a past success, a poisoned entry
-                    # nothing; re-verify it exactly, discard it if wrong.
-                    if audit and not verifier._host_check(chk):
-                        verifier.stats["cache_poison_caught"] += 1
-                        sig_cache.discard_key(ck)
-                        fresh.append((chk, ck))
+        with _span("batch.resolve"):
+            todo: List[SigCheck] = []
+            for chk in checks:
+                key = (chk.kind, chk.data)
+                if key in known:
+                    continue
+                known[key] = False  # placeholder until probed/dispatched
+                todo.append(chk)
+            if todo:
+                _UNIQ_CHECKS.inc(len(todo))
+                fresh: List[Tuple[SigCheck, bytes]] = []
+                audit = _guards.audit_cache_hits()
+                cache_keys = sig_cache.keys_for_checks(todo, engine)
+                hits = sig_cache.contains_keys(cache_keys)
+                for chk, ck, hit in zip(todo, cache_keys, hits, strict=True):
+                    if hit:
+                        # Audit: a hit certifies a past success, a poisoned
+                        # entry nothing; re-verify it exactly, discard if wrong.
+                        if audit and not verifier._host_check(chk):
+                            verifier.stats["cache_poison_caught"] += 1
+                            _guards.CACHE_POISON_CAUGHT.inc(cache="sig")
+                            sig_cache.discard_key(ck)
+                            fresh.append((chk, ck))
+                        else:
+                            known[(chk.kind, chk.data)] = True
                     else:
-                        known[(chk.kind, chk.data)] = True
-                else:
-                    fresh.append((chk, ck))
-            if fresh:
-                _faults.maybe_raise("batch.dispatch")
-                run_res = verifier.verify_checks([c for c, _ in fresh])
-                for (chk, ck), r in zip(fresh, run_res, strict=True):
-                    known[(chk.kind, chk.data)] = bool(r)
-                    if r:  # success-only insertion, like the reference
-                        sig_cache.add_key(ck)
-        publish_known()
+                        fresh.append((chk, ck))
+                if fresh:
+                    _faults.maybe_raise("batch.dispatch")
+                    run_res = verifier.verify_checks([c for c, _ in fresh])
+                    for (chk, _ck), r in zip(fresh, run_res, strict=True):
+                        known[(chk.kind, chk.data)] = bool(r)
+                    # Success-only insertion, like the reference.
+                    sig_cache.add_keys([ck for (_c, ck), r in zip(fresh, run_res,
+                                                                  strict=True) if r])
+            publish_known()
 
     # Phase 2: one deduplicated dispatch for every recorded check.
     resolve([chk for prep in preps for chk in prep.checks] + drain_spec())
@@ -497,12 +604,16 @@ def _verify_batch(items, verifier, sig_cache, script_cache, engine):
         else:
             pending.append(idx)
 
+    rounds = 1  # the optimistic pass above is round one
     for _round in range(MAX_ROUNDS):
         if not pending:
             break
+        rounds += 1
         new_checks: List[SigCheck] = []
         still: List[int] = []
-        for idx, (ok, err, unknown, recorded) in zip(pending, interpret(pending),
+        with _span("batch.interpret", n=len(pending)):
+            interpreted = interpret(pending)
+        for idx, (ok, err, unknown, recorded) in zip(pending, interpreted,
                                                      strict=True):
             if unknown == 0:
                 final[idx] = (ok, err)  # every oracle read was exact
@@ -513,6 +624,9 @@ def _verify_batch(items, verifier, sig_cache, script_cache, engine):
             resolve(new_checks + drain_spec())
         pending = still
 
+    _FIXPOINT_ROUNDS.observe(rounds)
+    if pending:
+        _EXACT_FALLBACK.inc(len(pending))
     for idx in pending:  # round cap hit: exact host checker
         item, prep = items[idx], preps[idx]
         if native:
@@ -533,19 +647,7 @@ def _verify_batch(items, verifier, sig_cache, script_cache, engine):
             checker,
         )
 
-    out: List[BatchResult] = []
-    for idx, prep in enumerate(preps):
-        if prep.result is not None:
-            out.append(prep.result)
-            continue
-        ok, err = final[idx]
-        if ok:
-            if script_keys[idx] is not None:
-                script_cache.add_key(script_keys[idx])
-            out.append(BatchResult.success())
-        else:
-            out.append(BatchResult(False, Error.ERR_SCRIPT, err))
-    return out
+    return _assemble_results(preps, final, script_cache, script_keys)
 
 
 # -- index mode ----------------------------------------------------------------------
@@ -602,22 +704,25 @@ def _dispatch_uniq(nsess, verifier, sig_cache, state: _UniqState):
     lo = len(state.val)
     if U == lo:
         return None
+    _UNIQ_CHECKS.inc(U - lo)
     grow = np.arange(lo, U, dtype=np.int32)
     with verifier.phases("host_prep"):
         raw = nsess.uniq_digests(sig_cache._salt, grow).tobytes()
-    keys = [raw[32 * j : 32 * j + 32] for j in range(U - lo)]
+    with _span("batch.uniq_keys"):
+        keys = [raw[32 * j : 32 * j + 32] for j in range(U - lo)]
     state.val = np.concatenate([state.val, np.zeros(U - lo, dtype=bool)])
     if len(sig_cache) == 0 and _faults.active() is None:
         miss = grow  # a cold cache: every probe misses
     else:
-        hit = np.fromiter((sig_cache.contains_key(k) for k in keys), dtype=bool,
-                          count=U - lo)
-        if _guards.audit_cache_hits():
-            for j in np.nonzero(hit)[0]:
-                if not nsess.uniq_host_verify(int(grow[j])):
-                    verifier.stats["cache_poison_caught"] += 1
-                    sig_cache.discard_key(keys[j])
-                    hit[j] = False
+        with _span("batch.sig_probe"):
+            hit = np.array(sig_cache.contains_keys(keys), dtype=bool)
+            if _guards.audit_cache_hits():
+                for j in np.nonzero(hit)[0]:
+                    if not nsess.uniq_host_verify(int(grow[j])):
+                        verifier.stats["cache_poison_caught"] += 1
+                        _guards.CACHE_POISON_CAUGHT.inc(cache="sig")
+                        sig_cache.discard_key(keys[j])
+                        hit[j] = False
         state.val[grow[hit]] = True
         miss = grow[~hit]
     if len(miss):
@@ -646,14 +751,17 @@ def _settle_uniq(nsess, verifier, sig_cache, state: _UniqState, round_rec) -> No
         okv = okv.copy()
         fix = np.nonzero(needs)[0]
         if len(fix):
+            _HOST_FIXUPS.inc(len(fix))
             with accumulate(verifier.stats, "fixup_s"):
                 for t in fix:
                     okv[t] = nsess.uniq_host_verify(int(sub[t]))
                 verifier.stats["fixups"] += len(fix)
         state.val[sub] = okv
-        for t in np.nonzero(okv)[0]:  # success-only, like the reference
-            sig_cache.add_key(keys[int(sub[t]) - lo])
-    nsess.publish_uniq(grow, state.val[grow].astype(np.int32))
+        with _span("batch.sig_cache_insert"):
+            # Success-only, like the reference.
+            sig_cache.add_keys([keys[int(i) - lo] for i in sub[okv]])
+    with _span("batch.publish"):
+        nsess.publish_uniq(grow, state.val[grow].astype(np.int32))
 
 
 class IdxFixpoint:
@@ -691,23 +799,29 @@ class IdxFixpoint:
         if self._rounds >= self.max_rounds:
             return
         self._rounds += 1
-        interp = self.run_idx(self._pending)
-        rec = _dispatch_uniq(self.nsess, self.verifier, self.sig_cache, self._state)
+        with _span("batch.interpret", n=len(self._pending)):
+            interp = self.run_idx(self._pending)
+        with _span("batch.resolve"):
+            rec = _dispatch_uniq(self.nsess, self.verifier, self.sig_cache,
+                                 self._state)
         self._in_flight = (interp, rec)
 
     def _settle_round(self) -> None:
         interp, rec = self._in_flight
         self._in_flight = None
-        _settle_uniq(self.nsess, self.verifier, self.sig_cache, self._state, rec)
-        ok, err, unk, rec_idx, bounds = interp
-        accept = _accept_mask(self._state, rec_idx, bounds, unk)
-        still: List[int] = []
-        for k, idx in enumerate(self._pending):
-            if accept[k]:
-                self.final[idx] = (bool(ok[k]), int(err[k]))
-            else:
-                still.append(idx)
-        self._pending = still
+        with _span("batch.resolve"):
+            _settle_uniq(self.nsess, self.verifier, self.sig_cache, self._state,
+                         rec)
+        with _span("batch.accept", n=len(self._pending)):
+            ok, err, unk, rec_idx, bounds = interp
+            accept = _accept_mask(self._state, rec_idx, bounds, unk)
+            still: List[int] = []
+            for k, idx in enumerate(self._pending):
+                if accept[k]:
+                    self.final[idx] = (bool(ok[k]), int(err[k]))
+                else:
+                    still.append(idx)
+            self._pending = still
 
     def abandon(self) -> None:
         """Settle and discard the round in flight without running the
@@ -731,6 +845,9 @@ class IdxFixpoint:
         while self._pending and self._rounds < self.max_rounds:
             self.begin()
             self._settle_round()
+        _FIXPOINT_ROUNDS.observe(self._rounds)
+        if self._pending:
+            _EXACT_FALLBACK.inc(len(self._pending))
         for idx in self._pending:  # round cap: the exact host checker
             self.final[idx] = self.exact_fallback(idx)
         self._pending = []
@@ -758,15 +875,14 @@ def _idx_fixpoint_for(items: Sequence[BatchItem], preps: List[_Prepared], nsess,
     n_threads = _idx_threads()
 
     def run_idx(pos: List[int]):
+        with _span("batch.interpret_args"):
+            args = ([preps[i].ntx for i in pos],
+                    [items[i].input_index for i in pos],
+                    [preps[i].amount for i in pos],
+                    [preps[i].script_pubkey for i in pos],
+                    [items[i].flags for i in pos])
         with verifier.phases("interpret"):
-            return nsess.verify_inputs_idx(
-                [preps[i].ntx for i in pos],
-                [items[i].input_index for i in pos],
-                [preps[i].amount for i in pos],
-                [preps[i].script_pubkey for i in pos],
-                [items[i].flags for i in pos],
-                n_threads=n_threads,
-            )
+            return nsess.verify_inputs_idx(*args, n_threads=n_threads)
 
     def exact_fallback(idx: int) -> Tuple[bool, int]:
         ok, err_code, _ = nsess.verify_input(
@@ -779,21 +895,29 @@ def _idx_fixpoint_for(items: Sequence[BatchItem], preps: List[_Prepared], nsess,
     return IdxFixpoint(nsess, verifier, sig_cache, live, run_idx, exact_fallback)
 
 
-def _assemble_idx_results(preps: List[_Prepared], final: Dict[int, Tuple[bool, int]],
-                          script_cache: ScriptExecutionCache,
-                          script_keys: List[Optional[bytes]]) -> List[BatchResult]:
-    out: List[BatchResult] = []
-    for idx, prep in enumerate(preps):
-        if prep.result is not None:
-            out.append(prep.result)
-            continue
-        ok, err = final[idx]
-        if ok:
-            if script_keys[idx] is not None:
-                script_cache.add_key(script_keys[idx])
-            out.append(BatchResult.success())
-        else:
-            out.append(BatchResult(False, Error.ERR_SCRIPT, ScriptError(err)))
+def _assemble_results(preps: List[_Prepared], final: Dict[int, Tuple],
+                      script_cache: ScriptExecutionCache,
+                      script_keys: List[Optional[bytes]]) -> List[BatchResult]:
+    """The batch's results in item order (`final[idx]` is (ok, ScriptError or
+    its code)), then the script-cache insertion of every success, in item
+    order, each step in its span."""
+    with _span("batch.assemble"):
+        out: List[BatchResult] = []
+        inserts: List[bytes] = []
+        with _span("batch.results"):
+            for idx, prep in enumerate(preps):
+                if prep.result is not None:
+                    out.append(prep.result)
+                    continue
+                ok, err = final[idx]
+                if ok:
+                    if script_keys[idx] is not None:
+                        inserts.append(script_keys[idx])
+                    out.append(BatchResult.success())
+                else:
+                    out.append(BatchResult(False, Error.ERR_SCRIPT, ScriptError(err)))
+        with _span("batch.script_cache_insert"):
+            script_cache.add_keys(inserts)
     return out
 
 
@@ -807,7 +931,7 @@ def _verify_batch_idx(items, preps, nsess, verifier, sig_cache, script_cache,
     if run is not None:
         run.begin()
         final = run.finish()
-    return _assemble_idx_results(preps, final, script_cache, script_keys)
+    return _assemble_results(preps, final, script_cache, script_keys)
 
 
 def verify_batch_stream(
@@ -835,10 +959,12 @@ def verify_batch_stream(
 
     def begin(items):
         if idx_mode:
-            with gc_paused():
+            with gc_paused(), _span("batch.stream_begin", n=len(items)):
                 nsess, preps, script_keys = _prepare_and_probe(items, script_cache,
                                                                engine)
                 if _idx_ready(nsess, preps):
+                    _BATCH_SIZE.observe(len(items))
+                    _BATCH_ITEMS.inc(len(items))
                     run = _idx_fixpoint_for(items, preps, nsess, verifier, sig_cache)
                     if run is not None:
                         run.begin()
@@ -849,17 +975,22 @@ def verify_batch_stream(
         if handle[0] == "done":
             return handle[1]
         _tag, run, preps, script_keys = handle
-        with gc_paused():
+        with gc_paused(), _span("batch.stream_finish", n=len(preps)):
             final = run.finish() if run is not None else {}
-            return _assemble_idx_results(preps, final, script_cache, script_keys)
+            out = _assemble_results(preps, final, script_cache, script_keys)
+        _record_batch_results(out)
+        return out
 
     try:
         for items in batches:
             window.append(begin(items))
+            _STREAM_WINDOW.set(len(window))
             while len(window) >= depth:
                 yield finish(window.pop(0))
+                _STREAM_WINDOW.set(len(window))
         while window:
             yield finish(window.pop(0))
+            _STREAM_WINDOW.set(len(window))
     finally:
         # A consumer that closes the stream early leaves begun batches with
         # dispatches in flight: settle them, so none is left unsettled.

@@ -24,6 +24,18 @@ cost, script validity, the coinbase reward. Rules that need headers or
 median time (BIP34 height in the coinbase, BIP68 sequence locks, nLockTime
 finality, difficulty retargets) sit above this layer, as they sit above
 `CheckInputScripts` in the reference.
+
+Telemetry (`obs/`, the reference's names): `consensus_blocks_total{result}`
+and `consensus_block_reject_total{reason}` (the reject strings verbatim),
+and the span `block.connect` around each call. Inside the native path every
+step has a span of its own or a verifier phase (`verifier.block_check`,
+`verifier.accounting`, `verifier.probe`, `verifier.interpret`,
+`verifier.apply`, and the seams'), so a span tree of one call splits it
+without a remainder beyond the glue between steps: `block.parse`,
+`block.script_keys`, `block.key_list`, `block.script_probe`,
+`block.session`, `block.tx_handles`, `block.results`,
+`block.script_cache_insert` and `block.release`, with the fixpoint's
+`batch.*` spans between.
 """
 
 from __future__ import annotations
@@ -59,6 +71,8 @@ from ..core.tx import COIN, MAX_MONEY, OutPoint, Tx, TxOut
 from ..core.tx_check import WITNESS_SCALE_FACTOR
 from ..core.script_error import ScriptError
 from ..crypto.torch_backend import TorchSecpVerifier
+from ..obs import counter as _obs_counter
+from ..obs import span as _span
 from ..utils.gcpause import gc_paused
 from ..utils.profiling import Phases
 from .batch import (
@@ -85,6 +99,16 @@ __all__ = [
 
 COINBASE_MATURITY = 100  # consensus/consensus.h:19
 SUBSIDY_HALVING_INTERVAL = 210_000  # chainparams.cpp mainnet
+
+# Block-level telemetry; the reason label is the reject string verbatim.
+_BLOCKS = _obs_counter(
+    "consensus_blocks_total", "connect_block calls by result", ("result",)
+)
+_BLOCK_REJECTS = _obs_counter(
+    "consensus_block_reject_total",
+    "connect_block rejections by reason string",
+    ("reason",),
+)
 
 @dataclass
 class Coin:
@@ -227,18 +251,23 @@ def connect_block(
     `NativeCoreError`. The cyclic collector is paused for the call.
     """
     native = native_bridge.use_native(engine)
-    with gc_paused():
+    with _span("block.connect", height=height), gc_paused():
         if native and isinstance(coins, native_bridge.NativeCoinsView):
-            return _connect_block_native(
+            res = _connect_block_native(
                 block, coins, height, flags, verifier, check_pow,
                 check_scripts, enforce_witness_commitment, pow_limit,
                 sig_cache, script_cache,
             )
-        return _connect_block_impl(
-            block, coins, height, flags, verifier, check_pow, check_scripts,
-            enforce_witness_commitment, pow_limit, sig_cache, script_cache,
-            engine,
-        )
+        else:
+            res = _connect_block_impl(
+                block, coins, height, flags, verifier, check_pow, check_scripts,
+                enforce_witness_commitment, pow_limit, sig_cache, script_cache,
+                engine,
+            )
+    _BLOCKS.inc(result="ok" if res.ok else "reject")
+    if not res.ok and res.reason:
+        _BLOCK_REJECTS.inc(reason=res.reason)
+    return res
 
 
 def _connect_block_native(
@@ -258,19 +287,20 @@ def _connect_block_native(
     and `sync`)."""
     if flags is None:
         flags = height_to_flags(height, extended=True)
-    if isinstance(block, (bytes, bytearray)):
-        nblk = native_bridge.NativeBlock(bytes(block))
-    else:
-        # The cached parse is keyed on the header and every txid and wtxid,
-        # so a block changed between calls is serialized and parsed anew.
-        fp = (block.header.serialize(), tuple(tx.txid for tx in block.vtx),
-              tuple(tx.wtxid for tx in block.vtx))
-        cached = getattr(block, "_native", None)
-        if cached is not None and cached[0] == fp:
-            nblk = cached[1]
+    with _span("block.parse"):
+        if isinstance(block, (bytes, bytearray)):
+            nblk = native_bridge.NativeBlock(bytes(block))
         else:
-            nblk = native_bridge.NativeBlock(block.serialize())
-            block._native = (fp, nblk)
+            # The cached parse is keyed on the header and every txid and
+            # wtxid, so a block changed between calls is parsed anew.
+            fp = (block.header.serialize(), tuple(tx.txid for tx in block.vtx),
+                  tuple(tx.wtxid for tx in block.vtx))
+            cached = getattr(block, "_native", None)
+            if cached is not None and cached[0] == fp:
+                nblk = cached[1]
+            else:
+                nblk = native_bridge.NativeBlock(block.serialize())
+                block._native = (fp, nblk)
     if check_scripts:
         verifier, sig_cache, script_cache = _defaults(
             verifier, sig_cache, script_cache, "native", "connect_block")
@@ -297,19 +327,24 @@ def _connect_block_native(
     if check_scripts:
         n = len(tx_index)
         with phase("probe"):
-            raw_keys = nblk.script_keys(script_cache._salt, flags).tobytes()
-            keys = [raw_keys[32 * j : 32 * j + 32] for j in range(n)]
-            if len(script_cache) == 0:  # a cold cache: every probe misses
-                hit = [False] * n
-            else:
-                hit = [script_cache.contains_key(k) for k in keys]
+            with _span("block.script_keys"):
+                raw_keys = nblk.script_keys(script_cache._salt, flags).tobytes()
+            with _span("block.key_list"):
+                keys = [raw_keys[32 * j : 32 * j + 32] for j in range(n)]
+            with _span("block.script_probe"):
+                if len(script_cache) == 0:  # a cold cache: every probe misses
+                    hit = [False] * n
+                else:
+                    hit = script_cache.contains_keys(keys)
 
-        nsess = native_bridge.NativeSession()
-        live = [j for j in range(n) if not hit[j]]
-        n_threads = _idx_threads()
-        flags_a = np.full(n, flags, dtype=np.int32)
-        # The block owns its txs, so these pointers live as long as nblk.
-        ptr_by_tx = [nblk.tx(t)._ptr for t in range(nblk.n_tx)]
+        with _span("block.session"):
+            nsess = native_bridge.NativeSession()
+            live = [j for j in range(n) if not hit[j]]
+            n_threads = _idx_threads()
+            flags_a = np.full(n, flags, dtype=np.int32)
+        with _span("block.tx_handles"):
+            # The block owns its txs, so these pointers live as long as nblk.
+            ptr_by_tx = [nblk.tx(t)._ptr for t in range(nblk.n_tx)]
 
         def run_idx(pos):
             with phase("interpret"):
@@ -337,19 +372,27 @@ def _connect_block_native(
                                  exact_fallback)
 
         input_results = []
+        inserts: List[bytes] = []
         all_ok = True
-        for j in range(n):
-            if hit[j]:
-                input_results.append(BatchResult.success())
-                continue
-            ok_j, err_j = final[j]
-            if ok_j:
-                script_cache.add_key(keys[j])
-                input_results.append(BatchResult.success())
-            else:
-                all_ok = False
-                input_results.append(
-                    BatchResult(False, Error.ERR_SCRIPT, ScriptError(err_j)))
+        with _span("block.results"):
+            for j in range(n):
+                if hit[j]:
+                    input_results.append(BatchResult.success())
+                    continue
+                ok_j, err_j = final[j]
+                if ok_j:
+                    inserts.append(keys[j])
+                    input_results.append(BatchResult.success())
+                else:
+                    all_ok = False
+                    input_results.append(
+                        BatchResult(False, Error.ERR_SCRIPT, ScriptError(err_j)))
+        with _span("block.script_cache_insert"):
+            script_cache.add_keys(inserts)
+        # The index session (its uniq list and oracle) and the per-input
+        # records, freed in a span of their own.
+        with _span("block.release"):
+            del nsess, final, keys, hit
         if not all_ok:
             return ConnectResult(False, "block-validation-failed", fees,
                                  sigop_cost, input_results)

@@ -45,6 +45,7 @@ __all__ = [
     "NativeSecp",
     "NativeSession",
     "NativeTx",
+    "available",
     "digest_checks",
     "digest_streams",
     "lib",
@@ -160,6 +161,17 @@ def lib() -> ctypes.CDLL:
             fn.restype = restype
         _lib = L
         return _lib
+
+
+def available() -> bool:
+    """Whether the native host core builds and loads (building it at the
+    first call). A query only: nothing changes engine on its answer, and
+    `engine="native"` still raises where it is False."""
+    try:
+        lib()
+    except NativeCoreError:
+        return False
+    return True
 
 
 def use_native(engine: str) -> bool:

@@ -10,15 +10,25 @@ quarantine and re-promotion probes) is not ported, by the port's rule:
 below the CUDA kernel there is no rung, no XLA program and no host-exact
 oracle for a dispatch to be demoted to, so a dispatch that exhausts its
 budget raises `DispatchFailed` instead. `ShardLadder` comes with the mesh.
-The reference counts retries in telemetry; the port's in-flight queue
-counts them in its verifier's `stats`.
+The in-flight queue counts each retry in its verifier's `stats` and in
+`consensus_resilience_retries_total{site}` (`RETRIES`, registered here as in
+the reference). The ladder's metrics (`consensus_resilience_level`,
+`_demotions_total`, `_repromotions_total`, `_probes_total`) are not
+registered: the port has no ladder.
 """
 
 from __future__ import annotations
 
+from ..obs import counter as _obs_counter
 from ..utils.profiling import monotonic
 
-__all__ = ["DispatchFailed", "DispatchResilience"]
+__all__ = ["DispatchFailed", "DispatchResilience", "RETRIES"]
+
+RETRIES = _obs_counter(
+    "consensus_resilience_retries_total",
+    "dispatch retries after a contained fault",
+    ("site",),
+)
 
 
 class DispatchFailed(RuntimeError):

@@ -28,8 +28,7 @@ The reference's mesh kinds, `device-loss` (a shard's device lost) and
 `straggle` (a shard's simulated lag, read by `shard_delay`), keep their
 names in `FaultSpec` so that a plan reads the same, but no site of the port
 consumes them until the port has a mesh. `fired` counts the faults fired by
-(site, kind); the reference also feeds a telemetry counter, which the port
-has not yet.
+(site, kind), and so does `consensus_resilience_faults_injected_total`.
 
 Host-side policy, never consensus: it reads no clock.
 """
@@ -43,6 +42,8 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from ..obs import counter as _obs_counter
+
 __all__ = [
     "FaultPlan",
     "FaultSpec",
@@ -55,6 +56,12 @@ __all__ = [
     "maybe_raise",
     "poison_hit",
 ]
+
+_FAULTS_FIRED = _obs_counter(
+    "consensus_resilience_faults_injected_total",
+    "chaos-harness faults fired, by site and kind",
+    ("site", "kind"),
+)
 
 # `corrupt_verdict` consumes the corruption kinds, `maybe_raise` the raise
 # kinds, so one plan can arm both on one site.
@@ -125,6 +132,7 @@ class FaultInjector:
                 ent[1] = left - 1
                 key = (site, spec.kind)
                 self.fired[key] = self.fired.get(key, 0) + 1
+                _FAULTS_FIRED.inc(site=site, kind=spec.kind)
                 return spec
         return None
 

@@ -29,9 +29,15 @@ Cache audit (`set_cache_audit`): when armed, the batch drivers re-verify
 every signature-cache hit on the exact host oracle and discard entries
 proven wrong. Off by default: it re-pays the work the cache skips.
 
-The reference counts anomalies, sentinel lanes and caught poison in
-telemetry counters; the port counts them in its verifier's `stats` where a
-verifier is at hand, and has no telemetry registry yet. Host-side numpy on
+Telemetry, as in the reference where it means something without a host
+rung: `consensus_resilience_guard_anomalies_total{site,reason}`,
+`_sentinel_lanes_total`, `_sentinel_skipped_total{reason}`,
+`_cache_poison_caught_total{cache}` and `_writable_copies_total` (the
+verifier's `stats` keep their own counts). Every anomaly is recorded in the
+flight ring (`guard.anomaly`), and a checksum mismatch also triggers a
+flight dump (`obs/flight.py`, disarmed by default). The reference's
+`_contained_total` and `_host_exact_lanes_total` count work demoted to the
+host and are not registered: the port has no host rung. Host-side numpy on
 materialised buffers only.
 """
 
@@ -43,6 +49,8 @@ import numpy as np
 
 from ..crypto import secp_host
 from ..crypto.glv import split_lambda
+from ..obs import counter as _obs_counter
+from ..obs import flight as _flight
 
 __all__ = [
     "CHECKSUM_MOD",
@@ -59,9 +67,37 @@ __all__ = [
     "verdict_checksum_host",
 ]
 
+GUARD_ANOMALIES = _obs_counter(
+    "consensus_resilience_guard_anomalies_total",
+    "device verdict buffers rejected by the guards, by site and reason",
+    ("site", "reason"),
+)
+_SENTINEL_LANES = _obs_counter(
+    "consensus_resilience_sentinel_lanes_total",
+    "known-answer sentinel lanes mixed into device dispatches",
+)
+_SENTINEL_SKIPPED = _obs_counter(
+    "consensus_resilience_sentinel_skipped_total",
+    "dispatches that could not carry sentinels (no pad room or "
+    "read-only packed buffers), by reason",
+    ("reason",),
+)
+CACHE_POISON_CAUGHT = _obs_counter(
+    "consensus_resilience_cache_poison_caught_total",
+    "cache hits whose audit re-verification disagreed (entry evicted)",
+    ("cache",),
+)
+_WRITABLE_COPIES = _obs_counter(
+    "consensus_resilience_writable_copies_total",
+    "packed batches copied host-side so sentinels could be installed "
+    "(native prep_pack hands back read-only views)",
+)
+
 
 class VerdictAnomaly(RuntimeError):
-    """A device verdict buffer failed validation (reason in `.reason`)."""
+    """A device verdict buffer failed validation (reason in `.reason`).
+    Raising one is the guards' single choke point: it is counted, recorded
+    in the flight ring, and a checksum mismatch triggers a flight dump."""
 
     def __init__(self, site: str, reason: str, detail: str = ""):
         msg = f"verdict anomaly at {site}: {reason}"
@@ -70,6 +106,10 @@ class VerdictAnomaly(RuntimeError):
         super().__init__(msg)
         self.site = site
         self.reason = reason
+        GUARD_ANOMALIES.inc(site=site, reason=reason)
+        _flight.record("guard.anomaly", site=site, reason=reason, detail=detail)
+        if reason == "checksum":
+            _flight.trigger("checksum", site=site, detail=detail)
 
 
 def validate_verdict(arr, n: int, site: str) -> np.ndarray:
@@ -169,6 +209,7 @@ def ensure_writable(args: Tuple) -> Tuple[Tuple, bool]:
     buffers are copied once, writable ones pass through untouched."""
     if all(_writable(a) for a in args):
         return args, False
+    _WRITABLE_COPIES.inc()
     return tuple(np.array(a) for a in args), True
 
 
@@ -187,6 +228,7 @@ def install_sentinels(
     size = int(fields.shape[0])
     room = size - n
     if room <= 0:
+        _SENTINEL_SKIPPED.inc(reason="no_pad_room")
         return None
     k = min(room, len(_sentinel_templates()))
     return install_sentinels_at(args, list(range(n, n + k)), rotation)
@@ -201,6 +243,7 @@ def install_sentinels_at(
     global _rotation
     fields, want_odd, parity, has_t2, neg1, neg2, valid = args
     if not all(_writable(a) for a in args):
+        _SENTINEL_SKIPPED.inc(reason="readonly")
         return None
     templates = _sentinel_templates()
     if rotation is None:
@@ -218,6 +261,7 @@ def install_sentinels_at(
         valid[pos] = True
         out_pos.append(int(pos))
         expected.append(exp)
+    _SENTINEL_LANES.inc(len(out_pos))
     return SentinelSet(out_pos, expected)
 
 

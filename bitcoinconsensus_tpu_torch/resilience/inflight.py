@@ -32,10 +32,21 @@ ticket nor settle one twice.
 
 `settle_array` is the one sanctioned place outside the verifier's settle
 seam that copies a device tensor to the host (`analysis/host_lint.py`, the
-`sync` rule over this module). The reference counts tickets, backpressure,
-expired deadlines and retries in telemetry; the port counts them in the
-`stats` dict it is given (the verifier's). Host-side policy only; time is
-read through `utils/profiling.monotonic`.
+`sync` rule over this module); it runs inside `region_scope("settle")`.
+
+Telemetry, as in the reference: every ticket carries a `PhaseTimeline`
+(`obs/perf.py`), stamped at submit, prepare, launch (again on a relaunch),
+first poll, settle start and settle end, and finalized at settle into
+`consensus_pipeline_phase_seconds{phase}` and the overlap gauge; the queue
+keeps `consensus_inflight_depth{site}`, `_tickets_total{site}`,
+`_settle_seconds`, `_deadline_expired_total{site}` and
+`_backpressure_total{site}`, and counts retries in
+`consensus_resilience_retries_total{site}`. `_redispatch_total{site}` is
+registered with the reference's name and stays at zero: it counts tickets
+re-dispatched after a ladder quarantine, and the port has no ladder. An
+expired deadline is recorded in the flight ring. The `stats` dict it is
+given (the verifier's) keeps its own counts. Host-side policy only; time is
+read through the obs clock (`utils/profiling.monotonic`).
 """
 
 from __future__ import annotations
@@ -48,20 +59,61 @@ from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 
+from ..obs import counter as _obs_counter
+from ..obs import current_trace as _current_trace
+from ..obs import flight as _flight
+from ..obs import gauge as _obs_gauge
+from ..obs import histogram as _obs_histogram
+from ..obs import perf as _perf
+from ..ops.regions import region_scope
 from ..utils.profiling import monotonic
-from .degrade import DispatchFailed, DispatchResilience
+from .degrade import RETRIES, DispatchFailed, DispatchResilience
 from .guards import VerdictAnomaly
 
 __all__ = ["InflightQueue", "Ticket", "settle_array", "unrecoverable"]
+
+_DEPTH = _obs_gauge(
+    "consensus_inflight_depth",
+    "unsettled tickets currently in the dispatch queue, by site",
+    ("site",),
+)
+_TICKETS = _obs_counter(
+    "consensus_inflight_tickets_total",
+    "tickets dispatched through the in-flight queue, by site",
+    ("site",),
+)
+_SETTLE_SECONDS = _obs_histogram(
+    "consensus_inflight_settle_seconds",
+    "wall-clock time from dispatch to settled verdict per ticket",
+    buckets=(0.001, 0.005, 0.02, 0.1, 0.5, 2.0, 10.0),
+)
+_DEADLINE_EXPIRED = _obs_counter(
+    "consensus_inflight_deadline_expired_total",
+    "tickets whose wall-clock deadline expired before a clean settle, by site",
+    ("site",),
+)
+_REDISPATCH = _obs_counter(
+    "consensus_inflight_redispatch_total",
+    "queued tickets cancelled and re-dispatched after a ladder "
+    "quarantine invalidated their level, by site",
+    ("site",),
+)
+_BACKPRESSURE = _obs_counter(
+    "consensus_inflight_backpressure_total",
+    "dispatches that had to settle the oldest ticket first because the "
+    "queue was at max depth, by site",
+    ("site",),
+)
 
 
 def settle_array(x) -> np.ndarray:
     """A device tensor (or anything array-like) as a host numpy array,
     waiting for it: the sanctioned device->host copy outside the settle
     seam."""
-    if hasattr(x, "cpu"):
-        return x.cpu().numpy()
-    return np.asarray(x)
+    with region_scope("settle"):
+        if hasattr(x, "cpu"):
+            return x.cpu().numpy()
+        return np.asarray(x)
 
 
 # CUDA errors after which the context is unusable: retrying the launch
@@ -92,14 +144,16 @@ class Ticket:
     result and the settle context."""
 
     __slots__ = (
-        "args", "n", "attempts", "deadline", "sset", "result", "aux",
-        "error", "settled", "outcome", "failure",
+        "args", "n", "attempts", "born", "deadline", "sset", "result", "aux",
+        "error", "settled", "outcome", "failure", "timeline",
     )
 
-    def __init__(self, args, n: int, deadline: float):
+    def __init__(self, args, n: int, deadline: float, born: float = 0.0,
+                 timeline=None):
         self.args = args            # staged buffers a relaunch reads
         self.n = n                  # real lanes of the dispatch
         self.attempts = 1
+        self.born = born            # when it was dispatched
         self.deadline = deadline    # wall-clock settle deadline
         self.sset = None            # what `prepare` returned (the sentinels)
         self.result = None          # unsynchronised device result
@@ -108,6 +162,9 @@ class Ticket:
         self.settled = False
         self.outcome = None         # (ok, needs) after a clean settle
         self.failure = None         # DispatchFailed after a failed one
+        # PhaseTimeline (or the disarmed no-op): phase stamps feeding
+        # consensus_pipeline_phase_seconds at settle.
+        self.timeline = _perf.NULL_TIMELINE if timeline is None else timeline
 
 
 class InflightQueue:
@@ -157,15 +214,25 @@ class InflightQueue:
         with self._lock:
             while len(self._pending) >= self.max_depth:
                 self.stats["backpressure"] += 1
+                _BACKPRESSURE.inc(site=self.site)
                 self._resolve(self._pending[0])
+            # The timeline starts before prepare, so the staging and the
+            # sentinels are attributed; it adopts the caller's trace id.
+            timeline = _perf.new_timeline(trace=_current_trace())
+            timeline.stamp("submit")
             sset = None
             if self._prepare is not None:
                 args, sset = self._prepare(args, n)
-            ticket = Ticket(args, n, deadline=monotonic() + self.deadline_s)
+            timeline.stamp("prepare")
+            now = monotonic()
+            ticket = Ticket(args, n, deadline=now + self.deadline_s, born=now,
+                            timeline=timeline)
             ticket.sset = sset
             self.stats["tickets"] += 1
+            _TICKETS.inc(site=self.site)
             self._launch(ticket)
             self._pending.append(ticket)
+            _DEPTH.set(len(self._pending), site=self.site)
             return ticket
 
     def _launch(self, ticket: Ticket) -> None:
@@ -176,6 +243,8 @@ class InflightQueue:
                 ticket.args, ticket.n, ticket.sset)
         except Exception as exc:  # settled as a failure; nothing runs instead
             ticket.error = exc
+        # Re-stamped on a relaunch: the settled attempt owns the edge.
+        ticket.timeline.stamp("launch")
 
     # -- settle side ---------------------------------------------------
 
@@ -194,14 +263,20 @@ class InflightQueue:
         outcome or its failure on it. Never raises."""
         if ticket.settled:
             return
+        # First host touch after the launch: the time since is the overlap
+        # window, device time the host did not wait on.
+        ticket.timeline.stamp_once("first_poll")
         if ticket in self._pending:
             self._pending.remove(ticket)
+        _DEPTH.set(len(self._pending), site=self.site)
         stats = self.stats
         while True:
             failure = ticket.error
             if failure is None:
+                ticket.timeline.stamp("settle_start")
                 try:
                     ticket.outcome = self._materialize(ticket)
+                    _SETTLE_SECONDS.observe(monotonic() - ticket.born)
                     break
                 except Exception as exc:
                     failure = exc
@@ -212,10 +287,14 @@ class InflightQueue:
                 break
             if monotonic() >= ticket.deadline:
                 stats["deadline_expired"] += 1
+                _DEADLINE_EXPIRED.inc(site=self.site)
+                _flight.record("inflight.deadline_expired", site=self.site,
+                               attempts=ticket.attempts)
                 break
             if not self._res.may_retry(ticket.attempts, ticket.deadline):
                 break
             stats["retries"] += 1
+            RETRIES.inc(site=self.site)
             ticket.attempts += 1
             if self.backoff_s > 0.0:
                 time.sleep(min(self.backoff_s * (1 << min(ticket.attempts, 8)),
@@ -229,6 +308,8 @@ class InflightQueue:
             ticket.failure = err
         ticket.settled = True
         ticket.args = ticket.result = ticket.aux = ticket.error = None
+        ticket.timeline.stamp("settle_end")
+        ticket.timeline.finalize()
 
     # -- introspection -------------------------------------------------
 

@@ -6,7 +6,8 @@ generational collector into repeated collections that each scan the
 heap. Reference counting still frees the acyclic bulk at once; only cycle
 collection waits, and a young-generation sweep runs at exit. Nested and
 concurrent pauses are safe: the collector comes back when the last paused
-section exits, and a caller who had disabled it keeps it disabled. Port of
+section exits, and a caller who had disabled it keeps it disabled; that
+sweep runs in the obs span `gc.sweep`. Port of
 `bitcoinconsensus_tpu/utils/gcpause.py`.
 """
 
@@ -15,6 +16,8 @@ from __future__ import annotations
 import gc
 import threading
 from contextlib import contextmanager
+
+from ..obs.spans import span as _span
 
 __all__ = ["gc_paused"]
 
@@ -40,4 +43,5 @@ def gc_paused():
             if sweep:
                 gc.enable()
         if sweep:
-            gc.collect(0)
+            with _span("gc.sweep"):
+                gc.collect(0)

@@ -55,7 +55,19 @@ Phases, each printing its own lines; any failure exits non-zero:
    `sigcache.sig` under the cache audit), once transient and once
    persistent, over 2,000 of the inputs: a transient fault gives the clean
    verdicts, a persistent one raises what the site raises, and no case
-   returns a wrong ACCEPT.
+   returns a wrong ACCEPT. The telemetry (`obs/`): each `[main_path*]`
+   line carries its call's split by span self time (`span_self_ms`), and
+   `[block]`'s `split_ms` is the best run's span split, its `residual` what
+   no span covers (`[block_split]`: each step's ms and share). `[obs]`: the
+   main path and the block with telemetry armed (a JSONL span sink, phase
+   timelines) and disarmed, in turns, every verdict equal. `[xprof]`: a
+   torch.profiler capture around a warmed main path and a warmed block:
+   device seconds by region and by kernel symbol (`vt_verify_kernel` on
+   `verify_tiles`, `vc_checksum_kernel` on `verdict_checksum`, none of the
+   port's kernels unattributed), the device's busy share of the window and
+   its five longest idle gaps with the host spans open over them; the
+   reports go to the output directory (`--out-dir`, by default
+   build/chip_smoke/) as xprof_*.json.
 4. Lane packing: the native core's packed lanes of the first 8,192 checks
    byte-equal to the Python packers', pad lanes included (`[lane_pack]`,
    both host times). Kernel against its plain version on the card: those
@@ -94,7 +106,14 @@ Phases, each printing its own lines; any failure exits non-zero:
    host cost included; the median of 7 rounds of 200 calls, and where one
    PyTorch call computes the same function, the two are timed in turns) and by
    torch.profiler on the card alone (`device_ms`).
-7. A `kernels` JSON line (with each path's launches of `verify_tiles` and
+   Where one PyTorch call sequence computes a toy's function (`x + 1`; the
+   dot toys' column of X X^T by `einsum`; the float squares), it is timed in
+   turns with the toy, and its output held to the toy's
+   (`library_max_abs_err`).
+7. `[stats]`: the stats gate (`python -m bitcoinconsensus_tpu_torch.obs.stats
+   --check --device cuda`, in this process): every metric the ported
+   layers must light has samples (snapshot in the output directory).
+8. A `kernels` JSON line (with each path's launches of `verify_tiles` and
    `verdict_checksum`), the card line, and the result line.
 
 The script needs the repository beside it; with no CUDA device, or alone in
@@ -328,6 +347,27 @@ def _device_ms(fn, reps, kernel: str):
     return us / reps / 1e3 if us > 0 else None
 
 
+class _ListSink:
+    """Keeps the span records of the runs it is attached to."""
+
+    def __init__(self):
+        self.records = []
+
+    def write(self, record):
+        self.records.append(record)
+
+
+def _span_split(records, root: str):
+    """{span: self ms} over the span trees under `root`, largest first: each
+    span's time less its children's, so the split of a call adds up to it
+    and the root's own entry is what no span inside it covers."""
+    from bitcoinconsensus_tpu_torch.obs import perf
+
+    split = perf.span_self_seconds(records, root=root)
+    return {k: round(v * 1e3, 4)
+            for k, v in sorted(split.items(), key=lambda kv: -kv[1])}
+
+
 def _prover() -> None:
     """Every non-heavy registry entry proves; the positive toy proves and
     every planted defect is rejected with its kind; every scalar-schedule
@@ -369,6 +409,7 @@ def _prover() -> None:
     for spec in registry.all_schedules():
         t0 = time.perf_counter()
         cert = spec.certify()
+        SC.emit_certificates([cert])
         _line("prover", schedule=spec.name, status=cert.status,
               facts=",".join(sorted(cert.facts)),
               seconds=f"{time.perf_counter() - t0:.2f}")
@@ -650,6 +691,7 @@ def _block(device, sync, launches_around, rehearse):
     from bitcoinconsensus_tpu_torch.models.sigcache import ScriptExecutionCache, SigCache
     from bitcoinconsensus_tpu_torch.models.validate import Coin, CoinsView, connect_block
     from bitcoinconsensus_tpu_torch.native_bridge import NativeCoinsView
+    from bitcoinconsensus_tpu_torch.obs import add_sink, remove_sink
     from bitcoinconsensus_tpu_torch.ops import verify_tiles as VT
     from bitcoinconsensus_tpu_torch.utils import blockgen as B
 
@@ -694,25 +736,29 @@ def _block(device, sync, launches_around, rehearse):
             seen.clear()
             view = nview0.clone()
             sig, script = SigCache(), ScriptExecutionCache()
-            verifier.phases.reset()
             verifier.stats.clear()
-            t0 = time.perf_counter()
-            res = connect_block(block, view, height, verifier=verifier,
-                                pow_limit=B.REGTEST_POW_LIMIT, sig_cache=sig,
-                                script_cache=script)
-            sync()
-            runs.append((time.perf_counter() - t0, res, view,
-                         {k: v["secs"] for k, v in verifier.phases.report().items()},
-                         dict(verifier.stats)))
+            sink = _ListSink()
+            add_sink(sink)
+            try:
+                t0 = time.perf_counter()
+                res = connect_block(block, view, height, verifier=verifier,
+                                    pow_limit=B.REGTEST_POW_LIMIT, sig_cache=sig,
+                                    script_cache=script)
+                sync()
+                dt = time.perf_counter() - t0
+            finally:
+                remove_sink(sink)
+            runs.append((dt, res, view, dict(verifier.stats), sink.records))
 
     launches_around("block", connect_runs)
     times = sorted(r[0] for r in runs)
     best = min(runs, key=lambda r: r[0])
-    dt, res, view, ph, st = best
-    names = ("block_check", "accounting", "probe", "interpret", "host_prep",
-             "dispatch", "sync", "apply")
-    split = {n: round(ph.get(n, 0.0) * 1e3, 4) for n in names}
-    split["residual"] = round(dt * 1e3 - sum(split.values()), 4)
+    dt, res, view, st, records = best
+    # The span split: every step's self time; the residual is what no span
+    # inside block.connect covers, plus the caller's time around the call.
+    split = _span_split(records, "block.connect")
+    split["residual"] = round(dt * 1e3 - sum(split.values())
+                              + split.pop("block.connect", 0.0), 4)
     # The same lanes again, the kernel warmed and launched back to back: an
     # in-pipeline launch follows tens of ms of idle device.
     warm_args = verifier.to_device(seen[-1][0])
@@ -727,7 +773,8 @@ def _block(device, sync, launches_around, rehearse):
     _line("block", inputs=n_in, txs=len(txs), iterations=iters, ok=res.ok,
           best_ms=f"{times[0] * 1e3:.3f}", median_ms=f"{times[len(times) // 2] * 1e3:.3f}",
           all_ms=json.dumps([round(t * 1e3, 3) for t in (r[0] for r in runs)]),
-          split_ms=json.dumps(split), kernel_launches=int(st.get("dispatches", 0)),
+          split_ms=json.dumps(split),
+          kernel_launches=int(st.get("dispatches", 0)),
           lanes=int(st.get("lanes", 0)), padded_lanes=int(st.get("padded_lanes", 0)),
           kernel_ms=f"{st.get('kernel_ms', 0.0):.4f}", warm_kernel_ms=f"{warm_ms:.4f}",
           busy_share=f"{st.get('kernel_ms', 0.0) / (dt * 1e3):.4f}",
@@ -737,6 +784,13 @@ def _block(device, sync, launches_around, rehearse):
           view_size=len(view), python_view_size=len(plain))
     if not res.ok or not same or len(view) != len(plain):
         _fail("connect_block: the block was rejected, or the two paths differ")
+    total = dt * 1e3
+    _line("block_split", best_ms=f"{total:.3f}", spans=len(split) - 1,
+          residual_ms=f"{split['residual']:.4f}",
+          residual_share=f"{split['residual'] / total:.4f}",
+          split=json.dumps({k: [v, round(v / total, 4)] for k, v in split.items()}))
+    if not records or split["residual"] > 0.5 * total:
+        _fail("[block_split]: the block's spans cover less than half of it")
 
     errs = [_hold_to_plain(VT, verifier, lanes, sync) for lanes, _n in seen]
     _line("block_compare", dispatches=len(seen), lanes=json.dumps([n for _, n in seen]),
@@ -1084,11 +1138,223 @@ def _chaos_phase(items, corrupted, results, device, rehearse) -> None:
         _fail("[chaos]: " + ", ".join(bad))
 
 
+class _TimedSink:
+    """A span sink that times its inner sink's writes."""
+
+    def __init__(self, sink):
+        self.sink, self.seconds = sink, 0.0
+
+    def write(self, record) -> None:
+        t0 = time.perf_counter()
+        self.sink.write(record)
+        self.seconds += time.perf_counter() - t0
+
+
+def _obs_phase(items, results, block_run, device, sync) -> None:
+    """`[obs]`: the main path (one `verify_batch` over every input) and the
+    config-5 block, each with telemetry armed (a JSONL span sink attached,
+    phase timelines on) and disarmed (no sink, timelines off), in turns
+    (off, on, on, off; twice for the main path, four times for the block)
+    on one warmed verifier, fresh caches each call: both sides' times,
+    medians and spreads, the first armed call and the sink's write time in
+    each armed call (a cost of arming would show there), and every verdict
+    compared with `[main_path]`'s and `[block]`'s (tolerance 0).
+
+    Two gates. The armed median may lie beyond the disarmed range by no
+    more than the disarmed spread (the host's own noise, in the same
+    turns). And the always-on telemetry, counted rather than timed
+    (`obs.perf.telemetry_cost` over one disarmed call), must stay under 1%
+    of the disarmed median."""
+    from bitcoinconsensus_tpu_torch.crypto.torch_backend import TorchSecpVerifier
+    from bitcoinconsensus_tpu_torch.models.batch import verify_batch
+    from bitcoinconsensus_tpu_torch.models.sigcache import ScriptExecutionCache, SigCache
+    from bitcoinconsensus_tpu_torch.obs import JsonlSink, add_sink, perf, remove_sink
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(HERE, "build", "obs")
+    os.makedirs(out_dir, exist_ok=True)
+    connect, block_want, block_cfg = block_run
+    want = _verdicts(results)
+    # (verifier config, one call, its verdicts, rounds of turns): the block
+    # is cheap, so it takes more rounds against the host's noise.
+    paths = {
+        "main_path": ({}, lambda v: _verdicts(verify_batch(
+            items, verifier=v, sig_cache=SigCache(), script_cache=ScriptExecutionCache())),
+            want, 2),
+        "block": (block_cfg, connect, block_want, 4),
+    }
+    med = lambda v: sorted(v)[len(v) // 2]  # noqa: E731
+    bad = []
+    for path, (cfg, run, expect, rounds) in paths.items():
+        order = (False, True, True, False) * rounds
+        v = TorchSecpVerifier(device=device, **cfg)
+        perf.set_enabled(False)
+        try:
+            run(v)  # warm: the verifier stages its buffers at this width
+            sync()
+            events, always_on_s = perf.telemetry_cost(lambda: (run(v), sync()))
+        finally:
+            perf.set_enabled(True)
+        times = {True: [], False: []}
+        sink_s = []
+        differing = records = 0
+        for armed in order:
+            sink = None
+            perf.set_enabled(armed)
+            if armed:
+                spans_path = os.path.join(out_dir, f"{path}.jsonl")
+                if os.path.exists(spans_path):
+                    os.remove(spans_path)
+                sink = _TimedSink(JsonlSink(spans_path))
+                add_sink(sink)
+            try:
+                t0 = time.perf_counter()
+                got = run(v)
+                sync()
+                times[armed].append(time.perf_counter() - t0)
+            finally:
+                perf.set_enabled(True)
+                if sink is not None:
+                    remove_sink(sink)
+                    sink.sink.close()
+                    sink_s.append(sink.seconds)
+                    with open(spans_path, encoding="utf-8") as fh:
+                        records += sum(1 for _ in fh)
+            differing += int(got != expect) if path == "block" else \
+                sum(a != b for a, b in zip(got, expect, strict=True))
+        off, on = times[False], times[True]
+        spread = max(off) - min(off)
+        within = min(off) <= med(on) <= max(off) and min(on) <= med(off) <= max(on)
+        _line("obs", path=path, order=f"(off,on,on,off)x{rounds}",
+              disarmed_s=json.dumps([round(t, 4) for t in off]),
+              armed_s=json.dumps([round(t, 4) for t in on]),
+              disarmed_median_s=f"{med(off):.4f}", armed_median_s=f"{med(on):.4f}",
+              disarmed_spread_s=f"{spread:.4f}", armed_spread_s=f"{max(on) - min(on):.4f}",
+              armed_over_disarmed_median=f"{med(on) / med(off):.3f}",
+              within_each_others_spread=within, first_armed_s=f"{on[0]:.4f}",
+              span_records_per_call=f"{records / len(on):.1f}",
+              sink_write_ms=json.dumps([round(t * 1e3, 3) for t in sink_s]),
+              always_on_events=json.dumps(events),
+              always_on_ms=f"{always_on_s * 1e3:.4f}",
+              always_on_share=f"{always_on_s / med(off):.6f}",
+              tolerance=0, differing=differing)
+        if differing or not records:
+            bad.append(f"{path}: a verdict changed with telemetry armed, or the "
+                       "armed sink received no span")
+        if med(on) > max(off) + spread:
+            bad.append(f"{path}: the armed median {med(on):.4f} s lies beyond the "
+                       f"disarmed range by more than its spread {spread:.4f} s")
+        if always_on_s >= 0.01 * med(off):
+            bad.append(f"{path}: the always-on telemetry is counted at "
+                       f"{always_on_s / med(off):.2%} of a call")
+    _line("obs_time", seconds=f"{time.perf_counter() - t_phase:.2f}")
+    if bad:
+        _fail("[obs] " + "; ".join(bad))
+
+
+def _xprof_phase(items, results, block_run, device, sync, rehearse, out_dir) -> None:
+    """`[xprof]`: a torch.profiler capture around one warmed `verify_batch`
+    of the main path and one around a warmed `connect_block` of the config-5
+    block (`obs/xprof.capture_report`): seconds per region, kernel seconds
+    by symbol, the unattributed seconds (0 for the port's own kernels), the
+    device's busy share of the window and its five longest idle gaps with
+    their host spans. Each report is written to `out_dir`. A capture that
+    fails ends the run: this phase is the measurement, not an option."""
+    from bitcoinconsensus_tpu_torch.crypto.torch_backend import TorchSecpVerifier
+    from bitcoinconsensus_tpu_torch.models.batch import verify_batch
+    from bitcoinconsensus_tpu_torch.models.sigcache import ScriptExecutionCache, SigCache
+    from bitcoinconsensus_tpu_torch.obs import xprof
+
+    if rehearse:
+        _line("xprof", skipped="a capture measures the card; none in a rehearsal")
+        return
+    t_phase = time.perf_counter()
+    connect, block_want, block_cfg = block_run
+    main_v = TorchSecpVerifier(device=device)
+    block_v = TorchSecpVerifier(device=device, **block_cfg)
+    want = _verdicts(results)
+    got = {}
+
+    def main_run():
+        got["main_path"] = _verdicts(verify_batch(
+            items, verifier=main_v, sig_cache=SigCache(),
+            script_cache=ScriptExecutionCache()))
+
+    def block_run_once():
+        got["block"] = connect(block_v)
+
+    for name, fn, expect in (("main_path", main_run, want),
+                             ("block", block_run_once, block_want)):
+        fn()  # warm: a first call at a width stages its buffers
+        sync()
+        t0 = time.perf_counter()
+        rep = xprof.capture_report(fn, log_dir=os.path.join(HERE, "build", "xprof", name))
+        cap_s = time.perf_counter() - t0
+        xprof.write_report(rep, os.path.join(out_dir, f"xprof_{name}.json"))
+        port_unattr = {k: v for k, v in rep["unattributed_symbols"].items()
+                       if k.startswith(("vt_", "vc_", "tk_"))}
+        sym = rep["symbols"]
+        _line("xprof", path=name, wall_s=f"{rep['walls_s'][0]:.4f}",
+              capture_s=f"{cap_s:.2f}",
+              regions_ms=json.dumps({k: round(v["seconds"] * 1e3, 5)
+                                     for k, v in rep["regions"].items()}),
+              symbols_ms=json.dumps({k: round(v * 1e3, 5) for k, v in sym.items()}),
+              unattributed_ms=f"{rep['unattributed_s'] * 1e3:.5f}",
+              port_unattributed_ms=f"{sum(port_unattr.values()) * 1e3:.5f}",
+              device_busy_share=f"{rep['device_busy_share']:.5f}",
+              window_ms=f"{rep['window_s'] * 1e3:.3f}", kernels=rep["kernels"],
+              same_verdicts=got[name] == expect)
+        for g in rep["gaps"]:
+            _line("xprof", path=name, gap_ms=f"{g['length_s'] * 1e3:.3f}",
+                  at_ms=f"{g['start_s'] * 1e3:.3f}", host_span=g["host_span"],
+                  host_spans=json.dumps([[n, round(t * 1e3, 3)]
+                                         for n, t in g["host_spans"]]))
+        regions = rep["regions"]
+        if (not sym.get("vt_verify_kernel") or not sym.get("vc_checksum_kernel")
+                or port_unattr or got[name] != expect
+                or regions.get("verify_tiles", {}).get("seconds") != sym["vt_verify_kernel"]
+                or regions.get("verdict_checksum", {}).get("seconds")
+                != sym["vc_checksum_kernel"]
+                or not 0.0 < rep["device_busy_share"] <= 1.0):
+            _fail(f"[xprof] {name}: the capture did not charge the port's kernels "
+                  "to their regions, or a verdict changed under it")
+    _line("xprof_time", seconds=f"{time.perf_counter() - t_phase:.2f}")
+
+
+def _stats_phase(rehearse, out_dir) -> None:
+    """`[stats]`: `python -m bitcoinconsensus_tpu_torch.obs.stats --check
+    --device cuda` run in this process, after `[xprof]` and `[prover]`, whose
+    capture and certificates the gate's workload then reuses. Every required
+    metric must have samples."""
+    import contextlib
+    import io
+
+    from bitcoinconsensus_tpu_torch.obs import stats
+
+    dev = "cpu" if rehearse else "cuda"
+    snap_path = os.path.join(out_dir, "stats_snapshot.json")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = stats.main(["--check", "--device", dev, "--out", snap_path])
+    with open(snap_path, encoding="utf-8") as fh:
+        snap = json.load(fh)["metrics"]
+    required = stats.required_metrics(dev)
+    missing = [n for n in required if not (snap.get(n) or {}).get("samples")]
+    _line("stats", device=dev, rc=rc, required=len(required), missing=len(missing),
+          seconds=f"{time.perf_counter() - t0:.2f}",
+          samples=json.dumps({n: len((snap.get(n) or {}).get("samples", []))
+                              for n in required}))
+    if rc or missing:
+        _fail(f"[stats]: required metrics without samples: {missing}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rehearse-cpu", action="store_true",
                     help="run the phases on the CPU at a small size (exits 3)")
     ap.add_argument("--seed", type=int, default=2026)
+    ap.add_argument("--out-dir", default=os.path.join(HERE, "build", "chip_smoke"),
+                    help="where the xprof reports and the stats snapshot go")
     args = ap.parse_args()
 
     import numpy as np
@@ -1102,6 +1368,7 @@ def main() -> int:
     from bitcoinconsensus_tpu_torch.crypto.torch_backend import TorchSecpVerifier
     from bitcoinconsensus_tpu_torch.models.batch import verify_batch
     from bitcoinconsensus_tpu_torch.models.sigcache import ScriptExecutionCache, SigCache
+    from bitcoinconsensus_tpu_torch.obs import add_sink, remove_sink
     from bitcoinconsensus_tpu_torch.ops import _build
     from bitcoinconsensus_tpu_torch.ops import limbs as L
     from bitcoinconsensus_tpu_torch.ops import verdict_checksum as VC
@@ -1109,6 +1376,7 @@ def main() -> int:
     from bitcoinconsensus_tpu_torch.utils import blockgen
 
     rehearse = args.rehearse_cpu
+    out_dir = args.out_dir
     device = torch.device("cpu" if rehearse else "cuda:0")
     n_inputs, n_lanes = (40, 64) if rehearse else (10_000, 8192)
     if rehearse:
@@ -1159,6 +1427,7 @@ def main() -> int:
           seconds=f"{t_gen:.3f}")
     if not any(corrupted):
         _fail("the data holds no corrupted input")
+    span_records = {}  # each driven path's span records
     path_launches = {}  # each path's kernel launches, counted around it alone
     checksum_launches = {}  # and the verdict checksum kernel's
 
@@ -1195,6 +1464,9 @@ def main() -> int:
 
         verifier.verify_checks = recording
         os.environ["BITCOINCONSENSUS_TPU_IDX"] = "0" if driver == "wire" else "1"
+        sink = _ListSink()
+        span_records[path] = sink.records
+        add_sink(sink)
         try:
             def run():
                 t0 = time.perf_counter()
@@ -1204,6 +1476,7 @@ def main() -> int:
                 return res, time.perf_counter() - t0
             results, t_total = launches_around(path, run)
         finally:
+            remove_sink(sink)
             os.environ.pop("BITCOINCONSENSUS_TPU_IDX", None)
         return results, path_launches[path], verifier, sent, t_total
 
@@ -1223,7 +1496,9 @@ def main() -> int:
               device_wait_s=f"{st['device_wait_s']:.4f}",
               kernel_ms=f"{st['kernel_ms']:.3f}", fixup_s=f"{st['fixup_s']:.4f}",
               inputs_per_s=f"{len(results) / t_total:.1f}",
-              checks_per_s=f"{st['lanes'] / t_total:.1f}")
+              checks_per_s=f"{st['lanes'] / t_total:.1f}",
+              span_self_ms=json.dumps(_span_split(span_records[phase],
+                                                  "batch.verify_batch")))
 
     verdicts = _verdicts
     results, launches, _v, _s, t_total = drive("main_path", "native")
@@ -1301,6 +1576,9 @@ def main() -> int:
     block_run = _block(device, sync, launches_around, rehearse)
     _guards_phase(items, results, block_run, device, sync, rehearse)
     _chaos_phase(items, corrupted, results, device, rehearse)
+    _obs_phase(items, results, block_run, device, sync)
+    os.makedirs(out_dir, exist_ok=True)
+    _xprof_phase(items, results, block_run, device, sync, rehearse, out_dir)
 
     # -- 4. lane packing, and the kernel against its plain version ---------------
     pack_checks = sent[:n_lanes]
@@ -1441,20 +1719,40 @@ def main() -> int:
     # (name, wrapper, contract, input, pallas_check.py line, kernel symbol,
     #  bytes, operations, rate, library call or None)
     x8 = ints(-1000, 1000)
+    x_tf32, x_dot, x_sq, x_wr = ints(0, 100), ints(0, 1 << 9), ints(0, 100), ints(0, 100)
+
+    def dot_col0(x, tf32):
+        """The dot toys' function in the fewest PyTorch calls: per 128-column
+        block, column 0 of X X^T broadcast over the block's columns."""
+        def f():
+            prev = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            try:
+                xf = x.view(K.TOY_ROWS, -1, K.TOY_TILE).float()
+                return torch.einsum("rbc,bc->rb", xf, xf[0]).int().repeat_interleave(
+                    K.TOY_TILE, 1)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = prev
+        return f
+
     toys = [
         ("positive", K.toy_positive, K.POSITIVE_CONTRACT, x8, 780,
          "tk_positive_kernel", elems8 * 8, elems8, H100_INT32_OPS, lambda: x8 + 1),
         ("mul", K.toy_mul, K.MUL_CONTRACT, torch.from_numpy(xm).to(device), 841,
          "tk_mul_kernel", xm.size * 8.0, float(cols * _mul_toy_ops_per_column()),
          H100_INT32_OPS, None),
-        ("f32_dot_tf32", K.toy_f32_dot_tf32, K.F32_DOT_TF32_CONTRACT, ints(0, 100),
-         884, "tk_f32_dot_tf32_kernel", elems8 * 8, dot_flops, H100_TF32_FLOPS, None),
-        ("f32_dot", K.toy_f32_dot, K.F32_DOT_CONTRACT, ints(0, 1 << 9), 910,
-         "tk_f32_dot_kernel", elems8 * 8, dot_flops, H100_F32_FLOPS, None),
-        ("f32_square", K.toy_f32_square, K.F32_SQUARE_CONTRACT, ints(0, 100), 933,
-         "tk_f32_square_kernel", elems8 * 8, elems8, H100_F32_FLOPS, None),
-        ("f32_write", K.toy_f32_write, K.F32_WRITE_CONTRACT, ints(0, 100), None,
-         "tk_f32_write_kernel", elems8 * 8, elems8, H100_F32_FLOPS, None),
+        ("f32_dot_tf32", K.toy_f32_dot_tf32, K.F32_DOT_TF32_CONTRACT, x_tf32,
+         884, "tk_f32_dot_tf32_kernel", elems8 * 8, dot_flops, H100_TF32_FLOPS,
+         dot_col0(x_tf32, True)),
+        ("f32_dot", K.toy_f32_dot, K.F32_DOT_CONTRACT, x_dot, 910,
+         "tk_f32_dot_kernel", elems8 * 8, dot_flops, H100_F32_FLOPS,
+         dot_col0(x_dot, False)),
+        ("f32_square", K.toy_f32_square, K.F32_SQUARE_CONTRACT, x_sq, 933,
+         "tk_f32_square_kernel", elems8 * 8, elems8, H100_F32_FLOPS,
+         lambda: x_sq.float().square().int()),
+        ("f32_write", K.toy_f32_write, K.F32_WRITE_CONTRACT, x_wr, None,
+         "tk_f32_write_kernel", elems8 * 8, elems8, H100_F32_FLOPS,
+         lambda: x_wr.float().square()),
         ("oob_index_map", K.toy_oob_index_map, K.OOB_CONTRACT, x8, 798,
          "tk_window_copy_kernel", checked_bytes, 0.0, H100_INT32_OPS, None),
         ("read_before_write", K.toy_read_before_write, K.RBW_CONTRACT, x8, 819,
@@ -1496,6 +1794,13 @@ def main() -> int:
         fns = [lambda: wrapper(x)] + ([library] if library else [])
         got = _timed_turns(fns, 1 if rehearse else 200, 1 if rehearse else 7, device)
         ms, lib_ms = got[0], (got[1] if library else None)
+        if library is not None and not checked:
+            # The library call's output against the kernel's: equal where it
+            # computes the same function bit for bit.
+            lib_out = library()
+            sync()
+            extra["library_max_abs_err"] = float(
+                (lib_out.double() - out.double()).abs().max())
         p_ms = _timed(plain_fn, 1 if rehearse else 20, device)
         dev_ms = None if rehearse else _device_ms(lambda: wrapper(x), 50, symbol)
         b_ms, b_by = _bound(nbytes_t, ops_t, rate)
@@ -1514,6 +1819,7 @@ def main() -> int:
             "launches": toy_launches[name], "max_abs_err": err, "ms": ms,
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms, "device_ms": dev_ms})
+    _stats_phase(rehearse, out_dir)
     _line("total", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

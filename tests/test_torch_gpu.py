@@ -529,3 +529,52 @@ def test_guarded_dispatch_on_cuda_absorbs_a_transient_fault(site, kind):
             v.verify_checks(checks)
     assert v.in_flight == 0
     assert np.array_equal(v.verify_checks(checks), want)
+
+
+@pytest.mark.gpu
+def test_capture_charges_the_port_kernels_to_their_regions(tmp_path):
+    """A torch.profiler capture around one warmed `verify_batch` on cuda:0
+    charges `vt_verify_kernel` to `verify_tiles` and `vc_checksum_kernel` to
+    `verdict_checksum`, leaves no kernel of the port unattributed, and reads
+    a busy share in (0, 1] with the gaps labelled by host spans."""
+    from bitcoinconsensus_tpu_torch.obs import xprof
+
+    _need_cuda()
+    items, _bad = B.mixed_items(300, seed=33, corrupt_rate=0.02)
+    v = TorchSecpVerifier()
+
+    def run():
+        verify_batch(items, verifier=v, sig_cache=SigCache(),
+                     script_cache=ScriptExecutionCache())
+
+    run()
+    rep = xprof.capture_report(run, log_dir=str(tmp_path))
+    assert rep["symbols"]["vt_verify_kernel"] > 0
+    assert rep["symbols"]["vc_checksum_kernel"] > 0
+    assert rep["regions"]["verify_tiles"]["seconds"] == \
+        pytest.approx(rep["symbols"]["vt_verify_kernel"])
+    assert rep["regions"]["verdict_checksum"]["seconds"] == \
+        pytest.approx(rep["symbols"]["vc_checksum_kernel"])
+    assert not [s for s in rep["unattributed_symbols"]
+                if s.startswith(("vt_", "vc_", "tk_"))]
+    assert 0.0 < rep["device_busy_share"] <= 1.0
+    assert rep["gaps"] and all(g["host_span"] for g in rep["gaps"])
+    assert rep["provenance"]["platform"] == "cuda"
+
+
+@pytest.mark.gpu
+def test_stats_gate_passes_on_cuda():
+    """`python -m bitcoinconsensus_tpu_torch.obs.stats --check --device cuda`
+    exits 0: every required metric of the ported layers has samples."""
+    import os
+    import subprocess
+    import sys
+
+    _need_cuda()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-m", "bitcoinconsensus_tpu_torch.obs.stats", "--check",
+         "--device", "cuda", "--format", "prom"],
+        cwd=repo, capture_output=True, text=True, timeout=900)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "0 problems" in proc.stderr

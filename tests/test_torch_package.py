@@ -68,6 +68,47 @@ def test_walk_covers_the_resilience_modules():
         assert os.path.join("bitcoinconsensus_tpu_torch", mod) in rel
 
 
+def test_walk_covers_the_obs_modules_and_regions():
+    rel = {os.path.relpath(p, REPO) for p in _sources()}
+    for mod in ("obs/__init__.py", "obs/metrics.py", "obs/spans.py",
+                "obs/exposition.py", "obs/perf.py", "obs/flight.py",
+                "obs/xprof.py", "obs/stats.py", "ops/regions.py"):
+        assert os.path.join("bitcoinconsensus_tpu_torch", mod) in rel
+
+
+def test_obs_exports_the_reference_names():
+    from bitcoinconsensus_tpu import obs as ref
+    from bitcoinconsensus_tpu_torch import obs as port
+
+    assert set(port.__all__) == set(ref.__all__)
+    for name in port.__all__:
+        assert getattr(port, name) is not None, name
+
+
+def test_obs_and_regions_import_with_jax_unavailable():
+    code = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None  # any import of jax now raises
+        sys.path.insert(0, {REPO!r})
+        from bitcoinconsensus_tpu_torch import obs
+        from bitcoinconsensus_tpu_torch.obs import exposition, flight, perf, stats, xprof
+        from bitcoinconsensus_tpu_torch.ops import regions
+        with obs.span("no-jax"):
+            obs.counter("no_jax_total").inc()
+        snap = obs.get_registry().snapshot()
+        assert snap["no_jax_total"]["samples"][0]["value"] == 1
+        assert exposition.to_prometheus_text(snap)
+        assert regions.KERNEL_REGIONS["vt_verify_kernel"] == "verify_tiles"
+        assert perf.provenance()["torch"]
+        assert not any(m == "bitcoinconsensus_tpu" or m.startswith("bitcoinconsensus_tpu.")
+                       for m in sys.modules)
+        print("ok")
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr[-3000:]
+
+
 def test_resilience_exports_the_reference_names_but_the_ladder():
     from bitcoinconsensus_tpu import resilience as ref
 
