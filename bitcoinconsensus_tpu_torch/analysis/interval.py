@@ -631,7 +631,8 @@ def _r_to_copy(o, a, **_kw):
 
 
 @_rule(aten.alias.default, aten.clone.default, aten.detach.default,
-       aten.lift_fresh_copy.default, aten.view.default, moves=True)
+       aten.lift_fresh_copy.default, aten.view.default,
+       aten._unsafe_view.default, moves=True)
 def _r_view(o, a, *_args, **_kw):
     return _reshape(a, o.shape)
 

@@ -10,11 +10,15 @@ is a fault of the port, not of the prover. Hand-written kernels are listed
 by their launch contracts (`analysis/kernel_check.py`).
 
 Entries of the JAX registry the port has no code for yet (`fe_inv`, the
-complete adds, `double_scalar_mult_glv`, `mxu.fe_mul_onehot`, `sha256.*`,
+complete adds, `double_scalar_mult_glv`, `mxu.fe_mul_onehot`,
 `jax_backend.verify_kernel`) are not registered; ROADMAP.md lists them with
 their modules. The reference's `jax_backend.verdict_checksum` is the port's
 `cuda.verdict_checksum`, the launch contract and body of
-`csrc/verdict_checksum.cu`.
+`csrc/verdict_checksum.cu`. The reference's `sha256.compress` and
+`sha256.bip340_challenge` are held over the port's plain versions
+(`ops/sha256.py`, int64 words masked to 32 bits), whose every intermediate
+the prover holds inside int64 and whose words inside [0, 2^32); the four
+kernels of `csrc/sha256.cu` are `cuda.sha256_*`, their launch contracts.
 
 To register a kernel:
 
@@ -26,10 +30,10 @@ and `python -m bitcoinconsensus_tpu_torch.analysis.lint` picks it up.
 
 The scalar-schedule prover's targets (`analysis/scalar_check.py`) are listed
 as `ScheduleSpec`s (`all_schedules`), which `lint --schedule` certifies.
-The reference's `sha256.bytes_from_words` target and its
-`curve.double_scalar_mult(_glv)` ladders wait for the port's modules that
-hold them; the ladders the port has are its verify kernel's, certified as
-`verify_tiles.plain_schedule` and `verify_tiles.cuda_schedule`.
+The reference's `curve.double_scalar_mult(_glv)` ladders wait for the
+port's modules that hold them; the ladders the port has are its verify
+kernel's, certified as `verify_tiles.plain_schedule` and
+`verify_tiles.cuda_schedule`.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ import torch
 
 from ..ops import curve as C
 from ..ops import limbs as L
+from ..ops import sha256 as SH
 from ..ops import verdict_checksum as VC
 from ..ops import verify_tiles as VT
 from . import interval, kernel_check
@@ -128,6 +133,89 @@ def _verdict_checksum() -> interval.Report:
     return rep
 
 
+M32 = (1 << 32) - 1
+# One lane, a ragged width of two blocks, and a full dispatch.
+SHA_WIDTHS = (1, 300, 8192)
+SHA_BODY_LANES = 3  # the body proofs' width: every lane has the same bounds
+
+
+def _u8(B: int, n: int = 32) -> interval.TensorSpec:
+    return interval.TensorSpec((B, n), torch.uint8)
+
+
+def _words(rows: int, B: int) -> interval.TensorSpec:
+    return interval.TensorSpec((rows, B), torch.uint32)
+
+
+def _digest(B: int):
+    return [[(0, 255)] * B]  # (B, 32) bytes: rows are lanes
+
+
+# The four kernels of csrc/sha256.cu: (entry, contract, argument specs at B
+# lanes, output rows at B lanes).
+SHA_CONTRACTS = (
+    ("cuda.sha256_compress", SH.COMPRESS_CONTRACT,
+     lambda b: [_words(8, b), _words(16, b)], lambda b: [[(0, M32)] * 8]),
+    ("cuda.sha256_fixed", SH.fixed_contract(64, double=True),
+     lambda b: [_u8(b, 64), _words(8, 1)], _digest),
+    ("cuda.sha256_challenge", SH.CHALLENGE_CONTRACT,
+     lambda b: [_u8(b)] * 3, _digest),
+    ("cuda.sha256_merkle_level", SH.MERKLE_LEVEL_CONTRACT,
+     lambda b: [_u8(b)], lambda b: [[(0, 255)] * ((b + 1) // 2)]),
+)
+
+
+def _sha_contract(name: str) -> interval.Report:
+    """A `csrc/sha256.cu` launch contract's windows at every width of
+    SHA_WIDTHS (grid, bounds, every output row written once)."""
+    _, contract, specs_of, _ = next(c for c in SHA_CONTRACTS if c[0] == name)
+    rep = interval.Report(name=name)
+    for B in SHA_WIDTHS:
+        kernel_check.check_contract(contract, specs_of(B), f"{name}[{B}]",
+                                    prove_body=False, report=rep)
+        rep.notes.append(f"contract checked at {B} lanes")
+    return rep
+
+
+def _sha_bodies() -> interval.Report:
+    """The four contracts' bodies (each kernel's plain version over one
+    block's window) proven at SHA_BODY_LANES lanes: every int64
+    intermediate inside int64, the words inside [0, 2^32)."""
+    rep = interval.Report(name="cuda.sha256.bodies")
+    B = SHA_BODY_LANES
+    for name, contract, specs_of, rows_of in SHA_CONTRACTS:
+        kernel_check.check_contract(contract, specs_of(B), f"{name}[{B}]",
+                                    out_within=rows_of(B), report=rep)
+        rep.notes.append(f"{name}: body proven at {B} lanes")
+    return rep
+
+
+def _sha_specs() -> List[KernelSpec]:
+    B = DEFAULT_BATCH
+    return [
+        KernelSpec("sha256.compress", lambda: interval.analyze(
+            SH.sha256_compress_reference, [_words(8, B), _words(16, B)],
+            "sha256.compress", out_within=[[(0, M32)] * 8]),
+            note="int64 words masked to 32 bits: every intermediate inside "
+                 "int64, the state inside [0, 2^32)"),
+        KernelSpec("sha256.bip340_challenge", lambda: interval.analyze(
+            SH.bip340_challenge_reference, [_u8(B)] * 3,
+            "sha256.bip340_challenge", out_within=_digest(B)), heavy=True,
+            note="two compressions from CHALLENGE_MIDSTATE over 96 bytes "
+                 "(about 13 s of tracing on one core)"),
+        *(KernelSpec(name, lambda name=name: _sha_contract(name),
+                     note="launch contract of csrc/sha256.cu at "
+                          f"{', '.join(map(str, SHA_WIDTHS))} lanes: one "
+                          "thread per lane, the ragged edge masked")
+          for name, *_ in SHA_CONTRACTS),
+        KernelSpec("cuda.sha256.bodies", _sha_bodies, heavy=True,
+                   note="the four SHA-256 contracts' bodies proven at "
+                        f"{SHA_BODY_LANES} lanes (about 45 s on one core); "
+                        "the merkle level's mutated flag is an atomicOr "
+                        "accumulator outside the windows"),
+    ]
+
+
 def _specs() -> List[KernelSpec]:
     w2, canon = w2_rows(), canon_rows()
     return [
@@ -147,6 +235,7 @@ def _specs() -> List[KernelSpec]:
                         "csrc/verdict_checksum.cu at "
                         f"{', '.join(map(str, VERDICT_CHECKSUM_WIDTHS))} lanes: "
                         "one block, both sums inside int32"),
+        *_sha_specs(),
         KernelSpec("cuda.verify_tiles.body", _verify_tiles_body, heavy=True,
                    note="interval proof of the plain version "
                         "(verify_tiles_reference, 20x13-bit limbs) on one "
@@ -186,6 +275,10 @@ def _schedule_specs() -> List[ScheduleSpec]:
                           "through torch, the .cu's g++ build and vt_recode"),
         ScheduleSpec("glv.split_lambda",
                      note="lattice constants + |k1|,|k2| < 2^128 certificate"),
+        ScheduleSpec("sha256.bytes_from_words",
+                     note="SHA-256 digest unpack: each byte the exact "
+                          "big-endian slice of its word; the message pack "
+                          "held too"),
         ScheduleSpec("verify_tiles.plain_schedule", heavy=True,
                      note="verify_tiles_reference: table object flow, signed "
                           "ledger, G rows, differential"),

@@ -16,7 +16,9 @@ kernel that replaced it, `csrc/verify_tiles.cu`. Four legs, all fail-closed
    to an aten graph, with the tracer of `interval.py`, and evaluated over
    symbolic bit variables b_i. Every window digit must equal
    Σ_{i<width} 2^i · b_{w·width+i} exactly, which makes the radix
-   recombination an identity, not a sampled test. An aten operation the
+   recombination an identity, not a sampled test. The same evaluator holds
+   SHA-256's digest unpack (`ops/sha256._bytes_from_words`) to the exact
+   big-endian byte slices of its words. An aten operation the
    evaluator has no rule for raises `SymUnsupported`, and the target FAILs.
    (The reference also proves plane congruences inside its interval
    domain; the port's interval domain has no congruence facts yet.)
@@ -56,7 +58,8 @@ kernel that replaced it, `csrc/verify_tiles.cu`. Four legs, all fail-closed
 
 `NEGATIVES` holds planted-unsound variants (wrong carry fold, swapped
 window order, dropped doubling, out-of-range digit weights, corrupted GLV
-constant); `analyze_negative` must REJECT each one.
+constant, and the port's own: a little-endian digest unpack);
+`analyze_negative` must REJECT each one.
 
 Registering a new recoder or schedule: add the function name to
 `REGISTERED_RECODERS` (the host lint's scalar-coverage rule requires it),
@@ -82,6 +85,7 @@ from ..crypto import secp_host as host
 from ..ops import _build
 from ..ops import curve as curve_mod
 from ..ops import limbs as limbs_mod
+from ..ops import sha256 as sha_mod
 from ..ops import verify_tiles as vt_mod
 from . import interval
 
@@ -360,6 +364,7 @@ SYM_RULES: Dict[str, Callable[..., Any]] = {
     "aten._unsafe_view.default": lambda x, s: np.reshape(x, _shape(x, s)),
     "aten.unsqueeze.default": lambda x, d: np.expand_dims(
         x, d if d >= 0 else d + x.ndim + 1),
+    "aten.permute.default": lambda x, dims: np.transpose(x, dims),
     "aten.slice.Tensor": _slice,
     "aten.select.int": lambda x, d, i: np.take(x, i, axis=d),
     "aten.cat.default": lambda ts, dim=0: np.concatenate(
@@ -602,6 +607,68 @@ def _target_bytes_to_limbs() -> CertResult:
     _prove_bytes_to_limbs(16, 10, facts, failures)
     _prove_int_limbs(facts, failures)
     return _finish("scalar.bytes_to_limbs", facts, failures)
+
+
+def _prove_bytes_from_words(fn, cert_name: str) -> CertResult:
+    """Byte j of `fn`'s (32,) output over 8 symbolic words must be the exact
+    big-endian 8-bit slice of word j // 4: bits 8·(3 - j % 4) .. + 8."""
+    facts: Dict[str, Any] = {}
+    failures: List[str] = []
+    name = "bytes_from_words[8W->32B]"
+    seed = np.empty((8,), dtype=object)
+    for w in range(8):
+        seed[w] = Lin({32 * w + i: 1 << i for i in range(32)})
+    try:
+        (out,) = _sym_eval(fn, interval.TensorSpec((8,), torch.uint32), seed)
+    except SymUnsupported as e:
+        failures.append(f"{name}: symbolic evaluation failed: {e}")
+        return _finish(cert_name, facts, failures)
+    except Exception as e:  # noqa: BLE001 (unevaluable is FAIL)
+        failures.append(f"{name}: {type(e).__name__}: {e}")
+        return _finish(cert_name, facts, failures)
+    flat = np.asarray(out, dtype=object).reshape(-1)
+    if flat.shape[0] != 32:
+        failures.append(f"{name}: {flat.shape[0]} output bytes, expected 32")
+        return _finish(cert_name, facts, failures)
+    for j in range(32):
+        word, pos = j // 4, j % 4
+        sh = 8 * (3 - pos)  # big-endian byte order within each word
+        want = Lin({32 * word + sh + i: 1 << i for i in range(8)})
+        if flat[j] != want:
+            failures.append(f"{name}: byte {j} is {flat[j]!r}, expected the "
+                            f"big-endian slice {want!r}")
+    if not failures:
+        facts[name] = {"words": 8, "bytes": 32, "order": "big-endian",
+                       "rule": "byte j == bits 8*(3-j%4)..+8 of word j//4"}
+    return _finish(cert_name, facts, failures)
+
+
+def _target_bytes_from_words() -> CertResult:
+    """SHA-256's digest unpack `ops/sha256._bytes_from_words`: the host
+    lint's scalar-coverage rule flags its `(w >> shifts) & 0xFF` extraction,
+    so it is certified as the limb packers are. The message pack
+    `_words_from_bytes` is held too (a fact of the port's own): word w of
+    32 symbolic bytes must be bytes 4w .. 4w + 3, the first the most
+    significant."""
+    cert = _prove_bytes_from_words(sha_mod._bytes_from_words,
+                                   "sha256.bytes_from_words")
+    name = "words_from_bytes[32B->8W]"
+    try:
+        (out,) = _sym_eval(sha_mod._words_from_bytes,
+                           interval.TensorSpec((32,), torch.uint8),
+                           _seed_byte_bits(32).reshape(32))
+        flat = np.asarray(out, dtype=object).reshape(-1)
+        want = [Lin({8 * (4 * w + k) + i: 1 << (8 * (3 - k) + i)
+                     for k in range(4) for i in range(8)}) for w in range(8)]
+        if flat.shape[0] != 8 or any(g != x for g, x in zip(flat, want)):
+            cert.failures.append(f"{name}: the words are not the big-endian "
+                                 f"packs of their four bytes: {list(flat)!r}")
+    except Exception as e:  # noqa: BLE001 (unevaluable is FAIL)
+        cert.failures.append(f"{name}: {type(e).__name__}: {e}")
+    if not cert.failures:
+        cert.facts[name] = {"bytes": 32, "words": 8, "order": "big-endian",
+                            "rule": "word w == sum 2^(8*(3-k)) byte(4w+k)"}
+    return _finish(cert.name, cert.facts, cert.failures)
 
 
 # --------------------------------------------------------------------------
@@ -1559,6 +1626,7 @@ TARGETS: Dict[str, Callable[..., CertResult]] = {
     "scalar._signed_digits128":
         lambda quick=False: _target_signed_digits128(),
     "glv.split_lambda": lambda quick=False: _target_glv(),
+    "sha256.bytes_from_words": lambda quick=False: _target_bytes_from_words(),
     "verify_tiles.plain_schedule": _target_plain_schedule,
     "verify_tiles.cuda_schedule": _target_cuda_schedule,
 }
@@ -1583,6 +1651,8 @@ REGISTERED_RECODERS: Dict[str, str] = {
     "signed_digit": "scalar._signed_digits128",
     "verify_lane_slots": "verify_tiles.cuda_schedule",
     "verify_lane": "verify_tiles.cuda_schedule",
+    "_bytes_from_words": "sha256.bytes_from_words",
+    "_words_from_bytes": "sha256.bytes_from_words",
 }
 
 # Targets whose certificate walks a whole verify lane (the plain version's
@@ -1724,6 +1794,20 @@ def _toy_ladder(order_desc: bool, doubles: int) -> CertResult:
     return _finish("negative.toy-ladder", facts, failures)
 
 
+def _toy_little_endian_digest() -> CertResult:
+    """A digest unpack that writes each word's bytes little-endian (shifts
+    0, 8, 16, 24): every byte lands in the wrong slot of its word."""
+
+    def le_bytes_from_words(words):
+        w = words.to(torch.int64).movedim(0, -1)
+        shifts = torch.tensor([0, 8, 16, 24], dtype=torch.int64)
+        b = (w.unsqueeze(-1) >> shifts) & 0xFF
+        return b.reshape(b.shape[:-2] + (32,)).to(torch.uint8)
+
+    return _prove_bytes_from_words(le_bytes_from_words,
+                                   "negative.sha256-byte-order")
+
+
 def _cert_to_report(name: str, cert: CertResult) -> interval.Report:
     rep = interval.Report(name=f"negative.{name}", ok=cert.ok)
     for f in cert.failures:
@@ -1739,6 +1823,7 @@ NEGATIVES: Dict[str, Callable[[], CertResult]] = {
     "scalar-dropped-doubling": lambda: _toy_ladder(order_desc=True, doubles=1),
     "scalar-digit-range": _toy_bad_weights_recoder,
     "scalar-glv-constant": lambda: prove_glv_constants(B2=glv_mod._B2 + 2),
+    "scalar-sha256-byte-order": _toy_little_endian_digest,
 }
 
 

@@ -19,13 +19,17 @@ the block-replay north star needs (SURVEY §2.3, §3.5):
 
 Like the reference, all hashes are held in wire byte order.
 
-A copy of `bitcoinconsensus_tpu/core/block.py` without `merkle_root_device`
-and `check_block`'s `device_merkle` option, which reach device SHA-256 that
-the port does not have yet: the merkle root is computed on the host.
+A copy of `bitcoinconsensus_tpu/core/block.py`. Its device merkle root,
+`merkle_root_device`, runs the port's SHA-256 kernel level by level
+(`ops/sha256.merkle_level`, `csrc/sha256.cu`) on cuda:0 by default, or on
+the device asked for ("cpu" runs the plain torch version);
+`check_block(device_merkle=True)` or BITCOINCONSENSUS_TPU_DEVICE_MERKLE=1
+selects it, as in the reference.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
@@ -40,6 +44,7 @@ __all__ = [
     "BlockHeader",
     "Block",
     "merkle_root",
+    "merkle_root_device",
     "block_merkle_root",
     "block_witness_merkle_root",
     "bits_to_target",
@@ -157,6 +162,55 @@ def merkle_root(hashes: List[bytes]) -> Tuple[bytes, bool]:
     return level[0], mutated
 
 
+def merkle_root_device(hashes: List[bytes], device=None) -> Tuple[bytes, bool]:
+    """`merkle_root` computed on a device: every level is one launch of
+    `ops/sha256.merkle_level` (a lane-parallel double SHA-256 over the pairs,
+    the odd tail duplicated in the kernel), the levels chained on the device
+    and the root and the `mutated` flag read back once, in one copy.
+    Bit-identical to the host version (tests/test_torch_sha256.py), the
+    CVE-2012-2459 flag with the host's semantics included: sibling equality
+    is taken before the odd duplicate, so the synthetic last pair never
+    counts.
+
+    `device=None` means cuda:0 and raises where CUDA is not available;
+    `device="cpu"` runs the plain torch version. On a card a launch that
+    fails raises: nothing falls back to the host hash.
+    """
+    import numpy as np
+    import torch
+
+    from ..ops.sha256 import merkle_level
+    from ..resilience.inflight import settle_array
+
+    if not hashes:
+        return b"\x00" * 32, False
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "merkle_root_device() runs on cuda:0 but CUDA is not "
+                "available; pass device=\"cpu\" to run the plain torch version"
+            )
+        device = "cuda:0"
+    device = torch.device(device)
+    n = len(hashes)
+    # One upload: the leaves, then 36 zero bytes that hold the root (32) and
+    # the flag (4), so one copy reads both back and no fill kernel runs.
+    staged = np.zeros(32 * n + 36, dtype=np.uint8)
+    staged[:32 * n] = np.frombuffer(b"".join(hashes), dtype=np.uint8)
+    buf = torch.from_numpy(staged).to(device)
+    level = buf[:32 * n].view(n, 32)
+    out = buf[32 * n:]
+    mutated = out[32:].view(torch.int32)
+    while level.shape[0] > 2:
+        level = merkle_level(level, mutated)
+    if level.shape[0] == 2:
+        merkle_level(level, mutated, out=out[:32].view(1, 32))
+    else:
+        out[:32].copy_(level[0])
+    host = settle_array(out)
+    return host[:32].tobytes(), bool(host[32:].view(np.int32)[0])
+
+
 def block_merkle_root(block: Block) -> Tuple[bytes, bool]:
     """BlockMerkleRoot: txid leaves (consensus/merkle.cpp:66-73)."""
     return merkle_root([tx.txid for tx in block.vtx])
@@ -244,18 +298,31 @@ def check_block(
     check_pow: bool = True,
     check_merkle: bool = True,
     pow_limit: int = POW_LIMIT_MAINNET,
+    device_merkle: Optional[bool] = None,
+    device=None,
 ) -> Tuple[bool, Optional[str]]:
     """Context-free CheckBlock (validation.cpp:3402-3474).
 
     Returns (ok, reject-reason); reasons match the reference's strings.
     Witness rules are contextual in the reference (segwit activation); use
     `check_witness_commitment` alongside for post-segwit blocks.
+    `device_merkle` selects the device merkle root `merkle_root_device`
+    (default: the BITCOINCONSENSUS_TPU_DEVICE_MERKLE env, "1" or "on"), on
+    `device` (None: cuda:0).
     """
     if check_pow and not check_proof_of_work(block.hash, block.header.bits, pow_limit):
         return False, "high-hash"
 
     if check_merkle:
-        root, mutated = merkle_root([tx.txid for tx in block.vtx])
+        if device_merkle is None:
+            device_merkle = os.environ.get(
+                "BITCOINCONSENSUS_TPU_DEVICE_MERKLE", ""
+            ) in ("1", "on")
+        leaves = [tx.txid for tx in block.vtx]
+        if device_merkle:
+            root, mutated = merkle_root_device(leaves, device)
+        else:
+            root, mutated = merkle_root(leaves)
         if block.header.merkle_root != root:
             return False, "bad-txnmrklroot"
         if mutated:

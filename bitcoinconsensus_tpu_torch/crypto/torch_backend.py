@@ -10,7 +10,9 @@ kinds reduce to R = a·G + b·P compared against a target:
     tweak     t        1      lift_x(pki)  R.x == out_x and parity matches
 
 The host parses and range-checks each check, inverts the ECDSA s values in
-one batch mod n, hashes the BIP340 challenges, splits b by the GLV
+one batch mod n, hashes the BIP340 challenges (or, on the Python engine with
+`device_challenge`, has the card hash every challenge of a call in one
+launch of `ops/sha256.bip340_challenge`), splits b by the GLV
 endomorphism and packs each lane as 4 x 32 bytes plus 6 flags: in one call
 of the native host core (`native_bridge.prep_pack`) by default, or with
 `engine="python"` through `_prep_lanes` / `_pack_lanes`, the spec the core
@@ -57,12 +59,13 @@ from ..obs import gauge as _obs_gauge
 from ..ops.limbs import P_INT
 from ..ops.regions import region_scope
 from ..ops.curve import G_X
+from ..ops.sha256 import bip340_challenge
 from ..ops.verdict_checksum import verdict_checksum
 from ..ops.verify_tiles import verify_tiles
 from ..resilience import faults as _faults
 from ..resilience import guards as _guards
 from ..resilience.degrade import DispatchResilience
-from ..resilience.inflight import InflightQueue, Ticket
+from ..resilience.inflight import InflightQueue, Ticket, settle_array
 from ..utils.gcpause import gc_paused
 from ..utils.hashes import tagged_hash
 from ..utils.profiling import Phases, accumulate
@@ -213,27 +216,36 @@ def _prep_ecdsa(lane: _Lane, pubkey: bytes, sig_der: bytes, msg32: bytes):
     return r, s, int.from_bytes(msg32, "big") % N
 
 
-def _prep_schnorr(lane: _Lane, pubkey32: bytes, sig64: bytes, msg32: bytes):
-    """BIP340 verify host half (modules/schnorrsig/main_impl.h:190-237)."""
+def _prep_schnorr(lane: _Lane, pubkey32: bytes, sig64: bytes, msg32: bytes,
+                  defer_challenge: bool = False):
+    """BIP340 verify host half (modules/schnorrsig/main_impl.h:190-237).
+
+    With `defer_challenge` the structural work happens here and the
+    challenge hash is left to the caller: returns the (r32, px32, m32)
+    triple for one batched `ops/sha256.bip340_challenge`, after which the
+    caller sets `lane.set_b((N - e) % N)`. Otherwise returns None."""
     if len(pubkey32) != 32 or len(sig64) != 64:
-        return
+        return None
     px = int.from_bytes(pubkey32, "big")
     if px >= P_INT:
-        return
+        return None
     r = int.from_bytes(sig64[:32], "big")
     s = int.from_bytes(sig64[32:], "big")
     if r >= P_INT or s >= N:
-        return
+        return None
     lane.px = px
     lane.want_odd = 0  # BIP340 lift_x: even y; the device checks existence
     lane.a = s
     lane.t1 = r
     lane.parity = 0  # require even R.y
     lane.valid = True
+    if defer_challenge:
+        return (sig64[:32], pubkey32, msg32)
     e = int.from_bytes(
         tagged_hash("BIP0340/challenge", sig64[:32] + pubkey32 + msg32), "big"
     ) % N
     lane.set_b((N - e) % N)  # (n-e)·P = -e·P
+    return None
 
 
 def _prep_tweak(lane: _Lane, tweaked32: bytes, parity: int, internal32: bytes,
@@ -285,6 +297,15 @@ class TorchSecpVerifier:
     the native core, which loads here or raises; `engine="python"` runs the
     Python packers and the `secp_host` oracle.
 
+    `device_challenge` (default: BITCOINCONSENSUS_TPU_DEVICE_SHA, "1" or
+    "on", read here as the reference reads it) has the Python engine's lane
+    prep hash every BIP340 challenge of a call on this verifier's device,
+    in one `bip340_challenge` launch (`csrc/sha256.cu`), its digests read
+    back through `settle_array`; `e mod n` and the GLV split stay on the
+    host. The native engine's prep hashes its challenges in C++ and ignores
+    the option, as the reference's native prep does. A launch that fails
+    raises; nothing falls back to host hashing.
+
     Two seams, each split into an asynchronous half and a settling half:
     `verify_checks_begin` / `verify_checks_finish` take `SigCheck`s, and
     `dispatch_lanes` / `sync_lanes` take lanes already packed (the index-mode
@@ -307,13 +328,18 @@ class TorchSecpVerifier:
     _SITE = "torch_backend"
 
     def __init__(self, device=None, engine: str = "native", min_batch: int = 8,
-                 chunk: int = 1 << 13, pad_step: Optional[int] = None):
+                 chunk: int = 1 << 13, pad_step: Optional[int] = None,
+                 device_challenge: Optional[bool] = None):
         if pad_step is not None and (pad_step <= 0 or pad_step % 512 != 0):
             raise ValueError("pad_step must be a positive multiple of 512 lanes")
         if min_batch < 1 or chunk < 2:
             raise ValueError("min_batch must be >= 1 and chunk >= 2")
         self.native = native_bridge.use_native(engine)
         self.engine = engine
+        if device_challenge is None:
+            device_challenge = os.environ.get(
+                "BITCOINCONSENSUS_TPU_DEVICE_SHA", "") in ("1", "on")
+        self.device_challenge = bool(device_challenge)
         self._min_batch = min_batch
         self._chunk = chunk
         self._pad_step = pad_step
@@ -391,13 +417,17 @@ class TorchSecpVerifier:
     def _prep_lanes(self, checks: Sequence[SigCheck]) -> List[_Lane]:
         lanes = [_Lane() for _ in checks]
         ecdsa_pending = []  # (lane, r, s, m)
+        schnorr_pending = []  # (lane, r32, px32, m32): device_challenge only
+        defer = self.device_challenge
         for lane, chk in zip(lanes, checks, strict=True):
             if chk.kind == "ecdsa":
                 got = _prep_ecdsa(lane, *chk.data)
                 if got is not None:
                     ecdsa_pending.append((lane, *got))
             elif chk.kind == "schnorr":
-                _prep_schnorr(lane, *chk.data)
+                trip = _prep_schnorr(lane, *chk.data, defer_challenge=defer)
+                if trip is not None:
+                    schnorr_pending.append((lane, *trip))
             else:
                 _prep_tweak(lane, *chk.data)
         if ecdsa_pending:
@@ -405,7 +435,29 @@ class TorchSecpVerifier:
             for (lane, r, _s, m), sinv in zip(ecdsa_pending, sinvs, strict=True):
                 lane.a = m * sinv % N  # u1
                 lane.set_b(r * sinv % N)  # u2
+        if schnorr_pending:
+            # One launch for every challenge of the call; the GLV split of
+            # (n - e) stays on the host, where the wide integers are.
+            digests = self._challenges(schnorr_pending)
+            for (lane, *_), d in zip(schnorr_pending, digests, strict=True):
+                e = int.from_bytes(d.tobytes(), "big") % N
+                lane.set_b((N - e) % N)  # (n-e)·P = -e·P
         return lanes
+
+    def _challenges(self, pending) -> np.ndarray:
+        """(n, 32) uint8 BIP340 challenge digests of the (lane, r32, px32,
+        m32) rows, hashed on this verifier's device: one upload of the three
+        (n, 32) planes, one `bip340_challenge` over them in place, one
+        `settle_array` back."""
+        n = len(pending)
+        planes = np.frombuffer(
+            b"".join(r for _, r, _, _ in pending)
+            + b"".join(px for _, _, px, _ in pending)
+            + b"".join(m for _, _, _, m in pending), dtype=np.uint8,
+        ).reshape(3, n, 32)
+        dev = torch.from_numpy(planes.copy()).to(self.device)
+        self.stats["challenge_lanes"] += n
+        return settle_array(bip340_challenge(dev[0], dev[1], dev[2]))
 
     def _pack_lanes(self, lanes: List[_Lane]):
         """The packed 7-tuple as numpy arrays, padded to `_pad(len(lanes))`:

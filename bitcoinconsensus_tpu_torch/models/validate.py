@@ -228,6 +228,7 @@ def connect_block(
     sig_cache: Optional[SigCache] = None,
     script_cache: Optional[ScriptExecutionCache] = None,
     engine: str = "native",
+    device_merkle: Optional[bool] = None,
 ) -> ConnectResult:
     """Validate one block against the UTXO view and apply it.
 
@@ -249,6 +250,11 @@ def connect_block(
     a plain `CoinsView`, or `engine="python"`, runs `_connect_block_impl`.
     The native engine's core builds and loads or this raises
     `NativeCoreError`. The cyclic collector is paused for the call.
+    `device_merkle` (default: BITCOINCONSENSUS_TPU_DEVICE_MERKLE) has the
+    Python block layer's `check_block` build the txid merkle root on the
+    verifier's device (`core/block.merkle_root_device`); the native block
+    layer's CheckBlock hashes in C++ and does not read it, as the
+    reference's native block layer does not.
     """
     native = native_bridge.use_native(engine)
     with _span("block.connect", height=height), gc_paused():
@@ -262,7 +268,7 @@ def connect_block(
             res = _connect_block_impl(
                 block, coins, height, flags, verifier, check_pow, check_scripts,
                 enforce_witness_commitment, pow_limit, sig_cache, script_cache,
-                engine,
+                engine, device_merkle,
             )
     _BLOCKS.inc(result="ok" if res.ok else "reject")
     if not res.ok and res.reason:
@@ -405,11 +411,14 @@ def _connect_block_native(
 def _connect_block_impl(
     block, coins, height, flags, verifier, check_pow, check_scripts,
     enforce_witness_commitment, pow_limit, sig_cache, script_cache, engine,
+    device_merkle=None,
 ) -> ConnectResult:
     if flags is None:
         flags = height_to_flags(height, extended=True)
 
-    ok, reason = check_block(block, check_pow=check_pow, pow_limit=pow_limit)
+    ok, reason = check_block(block, check_pow=check_pow, pow_limit=pow_limit,
+                             device_merkle=device_merkle,
+                             device=None if verifier is None else verifier.device)
     if not ok:
         return ConnectResult(False, reason)
     if enforce_witness_commitment is None:

@@ -10,9 +10,11 @@ flags of the reference's `native/Makefile`, its warnings left out:
 
     g++ -O3 -std=c++17 -fPIC -shared csrc/native/nat.cpp
 
-and so is the host build of the verify kernel's lane program
-(`csrc/verify_tiles_host.cpp`, which includes `verify_tiles.cu`; the name
-`verify_tiles_host`), which the scalar-schedule prover runs.
+and so are the host builds of two kernels' lane functions: the verify
+kernel's (`csrc/verify_tiles_host.cpp`, which includes `verify_tiles.cu`;
+the name `verify_tiles_host`), which the scalar-schedule prover runs, and
+SHA-256's (`csrc/sha256_host.cpp` with `sha256.cu`; `sha256_host`), which
+the tests hold to hashlib.
 
 A library lands in `build/torch_kernels/` at the root of the checkout,
 named by a hash of its sources and flags (all seven of the host core's, so
@@ -51,6 +53,9 @@ HOST_CORE_SOURCES = ("nat.cpp", "secp.hpp", "sha256.hpp", "hash_extra.hpp",
                      "interp.hpp", "eval.hpp", "block.hpp")
 GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 VT_HOST = "verify_tiles_host"
+SH_HOST = "sha256_host"
+# g++ builds of a `.cu` source's lane functions: name -> the `.cu` included.
+HOST_BUILDS = {VT_HOST: "verify_tiles.cu", SH_HOST: "sha256.cu"}
 
 
 @dataclass(frozen=True)
@@ -88,15 +93,15 @@ def _recipe(name: str) -> Tuple[Callable[[], str], Sequence[str], List[Path]]:
     """(compiler lookup, flags, sources: the compiled one first)."""
     if name == HOST_CORE:
         return _gxx, GXX_FLAGS, [CSRC / "native" / s for s in HOST_CORE_SOURCES]
-    if name == VT_HOST:
-        return _gxx, GXX_FLAGS, [CSRC / f"{VT_HOST}.cpp", CSRC / "verify_tiles.cu"]
+    if name in HOST_BUILDS:
+        return _gxx, GXX_FLAGS, [CSRC / f"{name}.cpp", CSRC / HOST_BUILDS[name]]
     return _nvcc, NVCC_FLAGS, [CSRC / f"{name}.cu"]
 
 
 def build(name: str) -> Built:
     """Compile `csrc/<name>.cu` (or a g++ source: the host core, `nat`, or
-    `verify_tiles_host`) unless a library of the same source hash is already
-    in the build directory."""
+    a host build of `HOST_BUILDS`) unless a library of the same source hash
+    is already in the build directory."""
     with _lock:
         name_lock = _name_locks.setdefault(name, threading.Lock())
     with name_lock:

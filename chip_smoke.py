@@ -7,7 +7,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. The card: nvidia-smi name and power limit, torch and CUDA versions.
 2. Build every kernel from `bitcoinconsensus_tpu_torch/csrc` with nvcc (the
-   verify kernel, the verdict checksum and the toys), and
+   verify kernel, the verdict checksum, the four SHA-256 kernels and the
+   toys), and
    the native host core (`csrc/native/`) and the host build of the verify
    kernel's lane program (`csrc/verify_tiles_host.cpp`, for the scalar
    prover) with g++, one process per source, all started together; print
@@ -67,7 +68,22 @@ Phases, each printing its own lines; any failure exits non-zero:
    port's kernels unattributed), the device's busy share of the window and
    its five longest idle gaps with the host spans open over them; the
    reports go to the output directory (`--out-dir`, by default
-   build/chip_smoke/) as xprof_*.json.
+   build/chip_smoke/) as xprof_*.json. Then the device SHA-256 paths, after
+   all of the above so that those phases run as they did before them:
+   `[challenge_path]`, the main path's inputs on the Python engine with
+   `device_challenge` off and on, in turns (off, on, on, off): verdicts
+   equal to `[main_path]`'s, the challenge kernel launched (> 0 on, 0 off),
+   the Schnorr lanes hashed on the card, `lane_prep_s` both ways, and the
+   host's `tagged_hash` over the same checks; `[merkle]`,
+   `merkle_root_device` on the card against the host `merkle_root` (root
+   and flag) at 1 to 16,384 seeded leaves, the block's txids, duplicated
+   sibling pairs and odd tails, both timed; `[block_device_sha]`, the block
+   on the Python block layer and engine with `device_merkle` and
+   `device_challenge`, equal to the native `[block]`, its corrupted twin
+   rejected alike, launching the merkle level, challenge, verify and
+   checksum kernels; and one more `[xprof]` capture, of that path, which
+   must charge `sh_merkle_level_kernel` to `sha256_compress` and
+   `sh_challenge_kernel` to `sighash_prep`.
 4. Lane packing: the native core's packed lanes of the first 8,192 checks
    byte-equal to the Python packers', pad lanes included (`[lane_pack]`,
    both host times). Kernel against its plain version on the card: those
@@ -87,7 +103,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    the verdict checksum kernel against its plain version at 16 widths from
    1 to 32,768 lanes, random, all-true and all-false buffers, with its time
    per call beside the two-call PyTorch equivalent (in turns), its device
-   time and its bound at the sweep widths (`[checksum]`).
+   time and its bound at the sweep widths (`[checksum]`). Then `[sha256]`:
+   each of the four SHA-256 kernels against its plain version on the card
+   at 1, 2,048, 8,192 and 262,144 lanes (tolerance 0) and on 256 lanes
+   against hashlib, with its time per call, device time, plain time and
+   bound, and at the width its path gives it.
 5. The kernel prover (`analysis/registry.py`), after the main path so that
    its tracing leaves the main path's timing alone: every non-heavy entry
    must prove, `verify_tiles`'s launch contract included (8,192 and 4,908
@@ -113,8 +133,9 @@ Phases, each printing its own lines; any failure exits non-zero:
 7. `[stats]`: the stats gate (`python -m bitcoinconsensus_tpu_torch.obs.stats
    --check --device cuda`, in this process): every metric the ported
    layers must light has samples (snapshot in the output directory).
-8. A `kernels` JSON line (with each path's launches of `verify_tiles` and
-   `verdict_checksum`), the card line, and the result line.
+8. A `kernels` JSON line (with each path's launches of `verify_tiles`,
+   `verdict_checksum` and the SHA-256 kernels), the card line, and the
+   result line.
 
 The script needs the repository beside it; with no CUDA device, or alone in
 a directory, it exits non-zero without a result. `--rehearse-cpu` runs the
@@ -889,7 +910,10 @@ def _block(device, sync, launches_around, rehearse):
                             script_cache=ScriptExecutionCache())
         return tup(got)
 
-    return connect, tup(res), dict(min_batch=512, chunk=8192, pad_step=2048)
+    # What the device-SHA phases, which run after [xprof], need of the block.
+    sha_ctx = dict(block=block, bad_block=bad_block, height=height,
+                   plain_view=plain_view, want=tup(res), bad_want=tup(bad_n))
+    return connect, tup(res), dict(min_batch=512, chunk=8192, pad_step=2048), sha_ctx
 
 
 def _checksum_phase(device, rng, rehearse):
@@ -976,7 +1000,7 @@ def _guards_phase(items, results, block_run, device, sync, rehearse) -> None:
     want = _verdicts(results)
     size = len(items) // 5
     batches = [items[k * size:(k + 1) * size] for k in range(5)]
-    connect, block_want, block_cfg = block_run
+    connect, block_want, block_cfg = block_run[:3]
     paths = {
         "main_path": ({}, lambda v: _verdicts(verify_batch(
             items, verifier=v, sig_cache=SigCache(), script_cache=ScriptExecutionCache())),
@@ -1173,7 +1197,7 @@ def _obs_phase(items, results, block_run, device, sync) -> None:
     t_phase = time.perf_counter()
     out_dir = os.path.join(HERE, "build", "obs")
     os.makedirs(out_dir, exist_ok=True)
-    connect, block_want, block_cfg = block_run
+    connect, block_want, block_cfg = block_run[:3]
     want = _verdicts(results)
     # (verifier config, one call, its verdicts, rounds of turns): the block
     # is cheap, so it takes more rounds against the host's noise.
@@ -1252,13 +1276,19 @@ def _obs_phase(items, results, block_run, device, sync) -> None:
         _fail("[obs] " + "; ".join(bad))
 
 
-def _xprof_phase(items, results, block_run, device, sync, rehearse, out_dir) -> None:
+def _xprof_phase(items, results, block_run, device, sync, rehearse, out_dir,
+                 sha_connect=None) -> None:
     """`[xprof]`: a torch.profiler capture around one warmed `verify_batch`
     of the main path and one around a warmed `connect_block` of the config-5
     block (`obs/xprof.capture_report`): seconds per region, kernel seconds
     by symbol, the unattributed seconds (0 for the port's own kernels), the
     device's busy share of the window and its five longest idle gaps with
-    their host spans. Each report is written to `out_dir`. A capture that
+    their host spans. Given `sha_connect` (a later call, after the device-SHA
+    phases, so that the earlier phases run as they did before them), one
+    capture of the same block on the device-SHA path (the Python block layer
+    with `device_merkle`, a verifier with `device_challenge`), whose merkle
+    level and challenge kernels must be charged to `sha256_compress` and
+    `sighash_prep`. Each report is written to `out_dir`. A capture that
     fails ends the run: this phase is the measurement, not an option."""
     from bitcoinconsensus_tpu_torch.crypto.torch_backend import TorchSecpVerifier
     from bitcoinconsensus_tpu_torch.models.batch import verify_batch
@@ -1269,22 +1299,32 @@ def _xprof_phase(items, results, block_run, device, sync, rehearse, out_dir) -> 
         _line("xprof", skipped="a capture measures the card; none in a rehearsal")
         return
     t_phase = time.perf_counter()
-    connect, block_want, block_cfg = block_run
-    main_v = TorchSecpVerifier(device=device)
-    block_v = TorchSecpVerifier(device=device, **block_cfg)
+    connect, block_want, block_cfg = block_run[:3]
     want = _verdicts(results)
     got = {}
 
-    def main_run():
-        got["main_path"] = _verdicts(verify_batch(
-            items, verifier=main_v, sig_cache=SigCache(),
-            script_cache=ScriptExecutionCache()))
+    if sha_connect is None:
+        main_v = TorchSecpVerifier(device=device)
+        block_v = TorchSecpVerifier(device=device, **block_cfg)
 
-    def block_run_once():
-        got["block"] = connect(block_v)
+        def main_run():
+            got["main_path"] = _verdicts(verify_batch(
+                items, verifier=main_v, sig_cache=SigCache(),
+                script_cache=ScriptExecutionCache()))
 
-    for name, fn, expect in (("main_path", main_run, want),
-                             ("block", block_run_once, block_want)):
+        def block_run_once():
+            got["block"] = connect(block_v)
+
+        runs = (("main_path", main_run, want), ("block", block_run_once, block_want))
+    else:
+        sha_v = TorchSecpVerifier(device=device, engine="python", device_challenge=True,
+                                  **block_cfg)
+
+        def sha_run_once():
+            got["block_device_sha"] = sha_connect(sha_v)
+
+        runs = (("block_device_sha", sha_run_once, block_want),)
+    for name, fn, expect in runs:
         fn()  # warm: a first call at a width stages its buffers
         sync()
         t0 = time.perf_counter()
@@ -1292,7 +1332,7 @@ def _xprof_phase(items, results, block_run, device, sync, rehearse, out_dir) -> 
         cap_s = time.perf_counter() - t0
         xprof.write_report(rep, os.path.join(out_dir, f"xprof_{name}.json"))
         port_unattr = {k: v for k, v in rep["unattributed_symbols"].items()
-                       if k.startswith(("vt_", "vc_", "tk_"))}
+                       if k.startswith(("vt_", "vc_", "sh_", "tk_"))}
         sym = rep["symbols"]
         _line("xprof", path=name, wall_s=f"{rep['walls_s'][0]:.4f}",
               capture_s=f"{cap_s:.2f}",
@@ -1318,6 +1358,14 @@ def _xprof_phase(items, results, block_run, device, sync, rehearse, out_dir) -> 
                 or not 0.0 < rep["device_busy_share"] <= 1.0):
             _fail(f"[xprof] {name}: the capture did not charge the port's kernels "
                   "to their regions, or a verdict changed under it")
+        if name == "block_device_sha" and (
+                not sym.get("sh_merkle_level_kernel") or not sym.get("sh_challenge_kernel")
+                or regions.get("sha256_compress", {}).get("seconds")
+                != sym["sh_merkle_level_kernel"]
+                or regions.get("sighash_prep", {}).get("seconds")
+                != sym["sh_challenge_kernel"]):
+            _fail("[xprof] block_device_sha: the SHA-256 kernels were not charged "
+                  "to sha256_compress and sighash_prep")
     _line("xprof_time", seconds=f"{time.perf_counter() - t_phase:.2f}")
 
 
@@ -1346,6 +1394,375 @@ def _stats_phase(rehearse, out_dir) -> None:
                               for n in required}))
     if rc or missing:
         _fail(f"[stats]: required metrics without samples: {missing}")
+
+
+SHA_WIDTHS = (1, 2048, 8192, 262144)
+# 32-bit instructions of one SHA-256 compression at the fewest the card
+# needs, as csrc/sha256.cu's note counts them: 48 schedule words of 10 (two
+# funnel shifts and a shift, one three-way xor as a LOP3, two three-input
+# adds as IADD3s), 64 rounds of 14 (six funnel shifts, a LOP3 each for Σ1,
+# Σ0, ch and maj, four IADD3s), and the 8 final adds; a block whose schedule
+# is a constant (a padding-only block) needs only its rounds.
+SHA_INSTR_PER_COMPRESSION = 48 * 10 + 64 * 14 + 8
+SHA_INSTR_CONSTANT_BLOCK = 64 * 14 + 8
+# The card's ceiling for such instructions: each of an SM's four partitions
+# starts one warp instruction (32 lanes) a clock, 132 SMs at 1.98 GHz. The
+# int32 rate above (64 lanes a clock) is the verify kernel's yardstick for
+# multiply-adds; SHA-256's logic, shifts and adds also run on the other
+# pipe, and the challenge kernel runs faster than the time that rate gives
+# (0.043 ms against 0.072 at 262,144 lanes on an H100 80GB HBM3 at 700 W),
+# so the instruction ceiling gives the least time here.
+H100_INSTR_RATE = 132 * 4 * 32 * 1.98e9
+SHA_SOURCE = "bitcoinconsensus_tpu_torch/csrc/sha256.cu"
+
+
+def _sha_counts():
+    """The four SHA-256 wrappers' launch counts, by kernel symbol."""
+    from bitcoinconsensus_tpu_torch.ops import sha256 as SH
+
+    return {k: w.launches for k, w in SH.WRAPPERS.items()}
+
+
+def _sha_zero():
+    from bitcoinconsensus_tpu_torch.ops import sha256 as SH
+
+    for w in SH.WRAPPERS.values():
+        w.launches = 0
+
+
+def _challenge_path(items, results, py_sent, device, sync, launches_around,
+                    rehearse):
+    """`[challenge_path]`: the main path's inputs through one `verify_batch`
+    on the Python engine with `device_challenge` off and on, in turns (off,
+    on, on, off), each with a fresh verifier and caches: every verdict equal
+    to `[main_path]`'s, the challenge kernel's launches (> 0 on, 0 off), the
+    Schnorr lanes hashed on the card, and `lane_prep_s` both ways. Beside
+    it, the host's `tagged_hash` over the same Schnorr checks. Returns the
+    first `on` run's challenge launches."""
+    from bitcoinconsensus_tpu_torch.crypto.torch_backend import TorchSecpVerifier
+    from bitcoinconsensus_tpu_torch.models.batch import verify_batch
+    from bitcoinconsensus_tpu_torch.models.sigcache import ScriptExecutionCache, SigCache
+    from bitcoinconsensus_tpu_torch.utils.hashes import tagged_hash
+
+    want = _verdicts(results)
+    runs = {False: [], True: []}
+    for on in (False, True, True, False):
+        v = TorchSecpVerifier(device=device, engine="python", device_challenge=on)
+
+        def run(v=v):
+            _sha_zero()
+            t0 = time.perf_counter()
+            res = verify_batch(items, verifier=v, sig_cache=SigCache(),
+                               script_cache=ScriptExecutionCache(), engine="python")
+            sync()
+            return res, time.perf_counter() - t0, _sha_counts()["sh_challenge_kernel"]
+
+        res, dt, n_chal = launches_around(
+            "challenge_path" if on else "challenge_path_host", run)
+        if _verdicts(res) != want:
+            _fail(f"[challenge_path]: device_challenge={on} changed a verdict")
+        if not rehearse and (n_chal > 0) != on:
+            _fail(f"[challenge_path]: device_challenge={on} launched the "
+                  f"challenge kernel {n_chal} times")
+        runs[on].append((dt, v.stats["lane_prep_s"], n_chal,
+                         int(v.stats.get("challenge_lanes", 0)),
+                         int(v.stats["dispatches"])))
+    schnorr = [c for c in py_sent if c.kind == "schnorr"]
+    t0 = time.perf_counter()
+    for c in schnorr:
+        pk, sig, msg = c.data
+        tagged_hash("BIP0340/challenge", sig[:32] + pk + msg)
+    host_hash_s = time.perf_counter() - t0
+    on, off = runs[True], runs[False]
+    _line("challenge_path", inputs=len(items), order="off,on,on,off",
+          schnorr_checks=len(schnorr), challenge_lanes=on[0][3],
+          challenge_launches=on[0][2], dispatches=on[0][4],
+          off_launches=off[0][2], verdicts_equal_main_path=True,
+          lane_prep_s_on=json.dumps([round(r[1], 4) for r in on]),
+          lane_prep_s_off=json.dumps([round(r[1], 4) for r in off]),
+          total_s_on=json.dumps([round(r[0], 4) for r in on]),
+          total_s_off=json.dumps([round(r[0], 4) for r in off]),
+          host_tagged_hash_s=f"{host_hash_s:.5f}")
+    if on[0][3] != on[1][3] or (not rehearse and on[0][3] == 0):
+        _fail("[challenge_path]: the Schnorr lanes hashed on the card differ "
+              "between runs, or none were")
+    return on[0][2]
+
+
+def _sha_bound(lanes: int, compressions: int, nbytes: float, constant_blocks: int = 0,
+               extra_ops: int = 0):
+    """(bound_ms, bound_by) of `lanes` lanes of `compressions` compressions,
+    `constant_blocks` of which hash a block whose schedule is a constant."""
+    per_lane = ((compressions - constant_blocks) * SHA_INSTR_PER_COMPRESSION
+                + constant_blocks * SHA_INSTR_CONSTANT_BLOCK + extra_ops)
+    return _bound(nbytes, float(lanes) * per_lane, H100_INSTR_RATE)
+
+
+def _sha256_phase(device, rng, rehearse, chal_width: int, merkle_width: int):
+    """`[sha256]`: each kernel of csrc/sha256.cu against its plain version on
+    the card at the sweep widths (1, 2,048, 8,192, 262,144 lanes; tolerance
+    0, every byte compared), and on 256 lanes against hashlib (single and
+    double hashes at six lengths with and without a midstate, challenges,
+    merkle pairs, and a compression of H0 over a padded message). At each
+    width its time per call (CUDA events, the wrapper's host cost included),
+    its device time (torch.profiler, at 8,192 and 262,144 lanes), the plain
+    version's time and its bound: the fewest 32-bit instructions of its
+    compressions over the card's instruction ceiling (3.35e13/s) against its bytes
+    over 3.35 TB/s. Then each at the width
+    its path gives it (the challenge at the main path's first dispatch's
+    Schnorr lanes, a merkle level at the config-5 block's first level; the
+    compression and the fixed hash, on no path, at 8,192). Returns the
+    kernels-line entries by kernel symbol."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from bitcoinconsensus_tpu_torch.ops import sha256 as SH
+    from bitcoinconsensus_tpu_torch.utils.hashes import tagged_hash
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def u8(*shape):
+        return torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(device)
+
+    def words(rows, n):
+        return torch.from_numpy(rng.integers(0, 1 << 32, (rows, n), dtype=np.uint32)).to(device)
+
+    def cases(n):
+        """(symbol, kernel call, plain call, bytes, compressions, constant
+        blocks, extra ops): the fixed hash of 64-byte rows and a merkle pair
+        each hash a padding-only block; a merkle lane compares 8 words."""
+        st, bl = words(8, n), words(16, n)
+        pairs = u8(n, 64)
+        r, p, m = u8(n, 32), u8(n, 32), u8(n, 32)
+        level = u8(2 * n, 32)
+        if n > 1:
+            level[2 * n - 1] = level[2 * n - 2]  # the last sibling pair equal
+        flag = torch.zeros(1, dtype=torch.int32, device=device)
+        pflag = torch.zeros(1, dtype=torch.int32, device=device)
+        return [
+            ("sh_compress_kernel", lambda: SH.sha256_compress(st, bl),
+             lambda: SH.sha256_compress_reference(st, bl), n * 32 * 4.0, 1, 0, 0),
+            ("sh_fixed_kernel", lambda: SH.sha256d_fixed(pairs),
+             lambda: SH.sha256d_fixed_reference(pairs), n * 96.0 + 32, 3, 1, 0),
+            ("sh_challenge_kernel", lambda: SH.bip340_challenge(r, p, m),
+             lambda: SH.bip340_challenge_reference(r, p, m), n * 128.0, 2, 0, 0),
+            ("sh_merkle_level_kernel", lambda: (SH.merkle_level(level, flag), flag),
+             lambda: (SH.merkle_level_reference(level, pflag), pflag),
+             n * 96.0 + 4, 3, 1, 16),
+        ]
+
+    def differing(a, b) -> int:
+        a = a if isinstance(a, tuple) else (a,)
+        b = b if isinstance(b, tuple) else (b,)
+        return sum(int((x.cpu().numpy().view(np.uint8)
+                        != y.cpu().numpy().view(np.uint8)).sum()) for x, y in zip(a, b))
+
+    _sha_zero()
+    t_phase = time.perf_counter()
+    widths = (1, 64) if rehearse else SHA_WIDTHS
+    total_diff = 0
+    for n in widths:
+        for sym, kern, plain, nbytes, comps, const, extra in cases(n):
+            got = kern()
+            want = plain()
+            sync()
+            diff = differing(got, want)
+            total_diff += diff
+            ms = _timed(kern, 1 if rehearse else 20, device)
+            p_ms = _timed(plain, 1, device)
+            dev_ms = None if rehearse or n not in (8192, 262144) else \
+                _device_ms(kern, 20, sym)
+            b_ms, b_by = _sha_bound(n, comps, nbytes, const, extra)
+            _line("sha256", kernel=sym, lanes=n, tolerance=0, differing_bytes=diff,
+                  ms=f"{ms:.5f}", device_ms=json.dumps(dev_ms), plain_ms=f"{p_ms:.4f}",
+                  bound_ms=f"{b_ms:.3g}", bound_by=b_by,
+                  bound_share=f"{b_ms / (dev_ms or ms):.4f}")
+    # 256 lanes against hashlib: lengths across the padding boundaries, with
+    # and without the TapSighash midstate; the challenge; merkle pairs.
+    n = 256
+    sample_diff = 0
+    th = hashlib.sha256(b"TapSighash").digest()
+    ms_tag = SH.tag_midstate("TapSighash")
+    for length in (0, 55, 56, 64, 80, 119, 200):
+        data = u8(n, length)
+        host = data.cpu().numpy()
+        one = SH.sha256_fixed(data).cpu().numpy()
+        two = SH.sha256d_fixed(data).cpu().numpy()
+        tag = SH.sha256_fixed(data, midstate=ms_tag, prefix_len=64).cpu().numpy()
+        for i in range(n):
+            h = hashlib.sha256(host[i].tobytes()).digest()
+            sample_diff += (one[i].tobytes() != h) + (two[i].tobytes() != hashlib.sha256(h).digest())
+            sample_diff += tag[i].tobytes() != hashlib.sha256(th + th + host[i].tobytes()).digest()
+    r, p, m = u8(n, 32), u8(n, 32), u8(n, 32)
+    chal = SH.bip340_challenge(r, p, m).cpu().numpy()
+    rh, ph, mh = (x.cpu().numpy() for x in (r, p, m))
+    sample_diff += sum(chal[i].tobytes() != tagged_hash(
+        "BIP0340/challenge", rh[i].tobytes() + ph[i].tobytes() + mh[i].tobytes())
+        for i in range(n))
+    level = u8(2 * n, 32)
+    lv = SH.merkle_level(level, torch.zeros(1, dtype=torch.int32, device=device)).cpu().numpy()
+    lh = level.cpu().numpy()
+    sample_diff += sum(lv[j].tobytes() != hashlib.sha256(hashlib.sha256(
+        lh[2 * j].tobytes() + lh[2 * j + 1].tobytes()).digest()).digest() for j in range(n))
+    msg = rng.integers(0, 256, 55, dtype=np.uint8).tobytes()
+    blk = np.frombuffer(msg + SH._padding(55), dtype=">u4").astype(np.uint32)
+    h0 = np.asarray(SH._H0, dtype=np.uint32)[:, None]
+    st = SH.sha256_compress(torch.from_numpy(h0).to(device),
+                            torch.from_numpy(blk[:, None].copy()).to(device))
+    sample_diff += SH._bytes_from_words(st.cpu()).numpy()[0].tobytes() != \
+        hashlib.sha256(msg).digest()
+    launches = _sha_counts()
+    _line("sha256", widths=json.dumps(list(widths)), tolerance=0,
+          differing_bytes=total_diff, hashlib_sample=n, hashlib_differing=sample_diff,
+          launches=json.dumps(launches), seconds=f"{time.perf_counter() - t_phase:.2f}")
+    if total_diff or sample_diff:
+        _fail("[sha256]: a SHA-256 kernel disagrees with its plain version or hashlib")
+    if not rehearse and 0 in launches.values():
+        _fail(f"[sha256]: a wrapper never launched its kernel: {launches}")
+    # Each kernel at the width its path gives it: the kernels line's numbers.
+    at = {"sh_compress_kernel": 8192, "sh_fixed_kernel": 8192,
+          "sh_challenge_kernel": max(chal_width, 1),
+          "sh_merkle_level_kernel": max(merkle_width, 1)}
+    entries = {}
+    for sym, width in at.items():
+        sym_case = next(c for c in cases(width) if c[0] == sym)
+        _, kern, plain, nbytes, comps, const, extra = sym_case
+        err = differing(kern(), plain())
+        fns = [kern]
+        ms = _timed_turns(fns, 1 if rehearse else 200, 1 if rehearse else 7, device)[0]
+        p_ms = _timed(plain, 1 if rehearse else 3, device)
+        dev_ms = None if rehearse else _device_ms(kern, 50, sym)
+        b_ms, b_by = _sha_bound(width, comps, nbytes, const, extra)
+        _line("sha256", kernel=sym, path_lanes=width, max_abs_err=err, ms=f"{ms:.5f}",
+              device_ms=json.dumps(dev_ms), plain_ms=f"{p_ms:.4f}",
+              bound_ms=f"{b_ms:.3g}", bound_by=b_by)
+        if err:
+            _fail(f"[sha256]: {sym} disagrees with its plain version at {width} lanes")
+        entries[sym] = dict(lanes=width, max_abs_err=err, ms=ms, plain_ms=p_ms,
+                            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                            device_ms=dev_ms)
+    return entries, launches
+
+
+def _merkle_phase(device, rng, block_txids, rehearse):
+    """`[merkle]`: `merkle_root_device` on the card against the port's host
+    `merkle_root` (root and `mutated` flag equal) at 1, 2, 3, 2,047, 4,096,
+    4,097 and 16,384 seeded leaves, the config-5 block's 400 txids, a
+    duplicated sibling pair (at the start, deep in a 4,097-leaf set, and as
+    two equal subtrees) and odd tails equal to their neighbour (not a
+    mutation); each timed by the host clock, the device's including the
+    upload and the one readback: best of 3. Returns the level launches of
+    the phase."""
+    import numpy as np
+
+    from bitcoinconsensus_tpu_torch.core.block import merkle_root, merkle_root_device
+
+    def leaves(n):
+        return [r.tobytes() for r in rng.integers(0, 256, (n, 32), dtype=np.uint8)]
+
+    sizes = (1, 2, 3, 40) if rehearse else (1, 2, 3, 2047, 4096, 4097, 16384)
+    sets = [(str(n), leaves(n)) for n in sizes]
+    sets.append(("config5_txids", list(block_txids)))
+    sets.append(("dup_pair", [b"\x11" * 32] * 2 + [b"\x22" * 32, b"\x33" * 32]))
+    deep = leaves(4097 if not rehearse else 41)
+    deep[-2] = deep[-3]  # the last full sibling pair
+    sets.append(("dup_deep", deep))
+    sub = leaves(8)
+    sets.append(("dup_subtree", sub[:4] * 2))
+    sets.append(("odd_tail_equal", [b"\x44" * 32] + [b"\x55" * 32] * 2))
+    odd = leaves(4097 if not rehearse else 41)
+    odd[-1] = odd[-2]
+    sets.append(("odd_tail_equal_4097", odd))
+    dev = None if device.type == "cuda" else device
+    _sha_zero()
+    bad = []
+    for name, hs in sets:
+        want = merkle_root(hs)
+        d_times, h_times = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = merkle_root_device(hs, dev)
+            d_times.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            merkle_root(hs)
+            h_times.append(time.perf_counter() - t0)
+        _line("merkle", leaves=len(hs), set=name, equal=got == want, mutated=got[1],
+              device_ms=f"{min(d_times) * 1e3:.4f}", host_ms=f"{min(h_times) * 1e3:.4f}")
+        if got != want:
+            bad.append(name)
+        if name.startswith("dup") != want[1]:
+            bad.append(f"{name}: flag {want[1]}")
+    launches = _sha_counts()["sh_merkle_level_kernel"]
+    _line("merkle", sets=len(sets), differing=len(bad), level_launches=launches)
+    if bad or (not rehearse and launches == 0):
+        _fail(f"[merkle]: the device root or flag differs from the host's: {bad}")
+    return launches
+
+
+def _block_device_sha(block, bad_block, height, plain_view, want, bad_want, device,
+                      sync, launches_around, rehearse, cfg):
+    """`[block_device_sha]`: the config-5 block through `connect_block` on the
+    Python block layer and engine with `device_merkle=True` and a verifier
+    with `device_challenge=True`: its result and every input's equal to the
+    native `[block]`'s, with the merkle level, challenge, verify and
+    checksum kernels each launched in the run; then `[block_reject]`'s
+    corrupted block, rejected alike. Returns (`connect(verifier)` on this
+    path, its launches by kernel)."""
+    from bitcoinconsensus_tpu_torch.crypto.torch_backend import TorchSecpVerifier
+    from bitcoinconsensus_tpu_torch.models.sigcache import ScriptExecutionCache, SigCache
+    from bitcoinconsensus_tpu_torch.models.validate import connect_block
+    from bitcoinconsensus_tpu_torch.ops import verdict_checksum as VC
+    from bitcoinconsensus_tpu_torch.ops import verify_tiles as VT
+    from bitcoinconsensus_tpu_torch.utils import blockgen as B
+
+    def tup(res):
+        return (res.ok, res.reason, res.fees, res.sigop_cost,
+                None if res.input_results is None else _verdicts(res.input_results))
+
+    def connect(verifier, blk=block):
+        return connect_block(blk, plain_view(), height, verifier=verifier,
+                             pow_limit=B.REGTEST_POW_LIMIT, sig_cache=SigCache(),
+                             script_cache=ScriptExecutionCache(), engine="python",
+                             device_merkle=True)
+
+    verifier = TorchSecpVerifier(device=device, engine="python", device_challenge=True,
+                                 **cfg)
+    got = {}
+
+    def run():
+        _sha_zero()
+        t0 = time.perf_counter()
+        res = connect(verifier)
+        sync()
+        got["ms"] = (time.perf_counter() - t0) * 1e3
+        got["sha"] = _sha_counts()
+        return res
+
+    res = launches_around("block_device_sha", run)
+    counts = dict(got["sha"], vt_verify_kernel=VT.verify_tiles.launches,
+                  vc_checksum_kernel=VC.verdict_checksum.launches)
+    bad = connect(verifier, bad_block)
+    _line("block_device_sha", ok=res.ok, equal_native=tup(res) == want,
+          reject_reason=bad.reason, reject_equal_native=tup(bad) == bad_want,
+          ms=f"{got['ms']:.3f}", challenge_lanes=int(verifier.stats["challenge_lanes"]),
+          launches=json.dumps({k: counts[k] for k in (
+              "sh_merkle_level_kernel", "sh_challenge_kernel", "vt_verify_kernel",
+              "vc_checksum_kernel")}))
+    if tup(res) != want or tup(bad) != bad_want:
+        _fail("[block_device_sha]: the device-SHA block path differs from the native block")
+    need = ("sh_merkle_level_kernel", "sh_challenge_kernel", "vt_verify_kernel",
+            "vc_checksum_kernel")
+    if not rehearse and not all(counts[k] > 0 for k in need):
+        _fail(f"[block_device_sha]: a kernel of the path was not launched: {counts}")
+
+    def connect_tup(v):
+        return tup(connect(v))
+
+    return connect_tup, counts
 
 
 def main() -> int:
@@ -1377,6 +1794,7 @@ def main() -> int:
 
     rehearse = args.rehearse_cpu
     out_dir = args.out_dir
+    seed = args.seed
     device = torch.device("cpu" if rehearse else "cuda:0")
     n_inputs, n_lanes = (40, 64) if rehearse else (10_000, 8192)
     if rehearse:
@@ -1394,13 +1812,13 @@ def main() -> int:
     if not rehearse:
         from concurrent.futures import ThreadPoolExecutor
 
-        sources = ("verify_tiles", "verdict_checksum", "toy_kernels", _build.HOST_CORE,
-                   _build.VT_HOST)
+        sources = ("verify_tiles", "verdict_checksum", "sha256", "toy_kernels",
+                   _build.HOST_CORE, _build.VT_HOST)
         with ThreadPoolExecutor(len(sources)) as pool:
             builds = list(pool.map(_build.build, sources))
         for name, built in zip(sources, builds):
             what = dict(kernel=name) if name in (
-                "verify_tiles", "verdict_checksum", "toy_kernels") else dict(name=name)
+                "verify_tiles", "verdict_checksum", "sha256", "toy_kernels") else dict(name=name)
             _line("build", **what, seconds=f"{built.seconds:.2f}",
                   library=os.path.relpath(built.path, HERE))
             for ln in built.log.splitlines():
@@ -1413,6 +1831,10 @@ def main() -> int:
         _line("ptxas", kernel="vc_checksum_kernel",
               **_ptxas(builds[1].log, "vc_checksum_kernel"),
               build_s=f"{builds[1].seconds:.2f}")
+        for sym in ("sh_compress_kernel", "sh_fixed_kernel", "sh_challenge_kernel",
+                    "sh_merkle_level_kernel"):
+            _line("ptxas", kernel=sym, **_ptxas(builds[2].log, sym),
+                  build_s=f"{builds[2].seconds:.2f}")
 
     def sync():
         if device.type == "cuda":
@@ -1516,6 +1938,7 @@ def main() -> int:
     if n_wire_diff or n_engine_diff or not (
             len(results) == len(wire_run[0]) == len(py_run[0]) == len(items)):
         _fail("the index-mode, wire and Python drivers' verdicts differ")
+    py_sent = py_run[3]
 
     # The two native drivers again, in turns (wire, index, index, wire), each
     # with a fresh verifier and caches: the first call of a process pays
@@ -1579,6 +2002,24 @@ def main() -> int:
     _obs_phase(items, results, block_run, device, sync)
     os.makedirs(out_dir, exist_ok=True)
     _xprof_phase(items, results, block_run, device, sync, rehearse, out_dir)
+
+    # -- the device SHA-256 paths, after the phases above so that those run
+    # in the process state they had before this slice -------------------------
+    chal_launches = _challenge_path(items, results, py_sent, device, sync,
+                                    launches_around, rehearse)
+    # The challenge kernel's width on that path: the first dispatch's
+    # Schnorr checks.
+    chal_width = sum(c.kind == "schnorr" for c in py_sent[:py_run[2].lane_capacity])
+    sha_ctx = block_run[3]
+    merkle_launches = _merkle_phase(
+        device, np.random.default_rng([seed, 4097]),
+        [tx.txid for tx in sha_ctx["block"].vtx], rehearse)
+    sha_connect, sha_counts = _block_device_sha(
+        sha_ctx["block"], sha_ctx["bad_block"], sha_ctx["height"], sha_ctx["plain_view"],
+        sha_ctx["want"], sha_ctx["bad_want"], device, sync, launches_around, rehearse,
+        block_run[2])
+    _xprof_phase(items, results, block_run, device, sync, rehearse, out_dir,
+                 sha_connect=sha_connect)
 
     # -- 4. lane packing, and the kernel against its plain version ---------------
     pack_checks = sent[:n_lanes]
@@ -1665,6 +2106,9 @@ def main() -> int:
             _fail(f"kernel and plain version disagree at {width} lanes")
 
     checksum = _checksum_phase(device, rng, rehearse)
+    sha_entries, sha_launches = _sha256_phase(
+        device, np.random.default_rng([seed, 256]), rehearse, chal_width,
+        (len(sha_ctx["block"].vtx) + 1) // 2)
 
     kernels = [{
         "name": "verify_tiles",
@@ -1689,6 +2133,32 @@ def main() -> int:
         "launches_by_path": checksum_launches,
         **checksum,
     }]
+    sha_paths = {"block_device_sha": sha_counts, "merkle": merkle_launches}
+    by_path = {
+        "sh_compress_kernel": {"sha256": sha_launches["sh_compress_kernel"]},
+        "sh_fixed_kernel": {"sha256": sha_launches["sh_fixed_kernel"]},
+        "sh_challenge_kernel": {
+            "challenge_path": chal_launches,
+            "block_device_sha": sha_paths["block_device_sha"]["sh_challenge_kernel"]},
+        "sh_merkle_level_kernel": {
+            "block_device_sha": sha_paths["block_device_sha"]["sh_merkle_level_kernel"],
+            "merkle": sha_paths["merkle"]},
+    }
+    for sym, name, line in (
+            ("sh_compress_kernel", "sha256_compress", "bitcoinconsensus_tpu/ops/sha256.py:80"),
+            ("sh_fixed_kernel", "sha256_fixed", "bitcoinconsensus_tpu/ops/sha256.py:130"),
+            ("sh_challenge_kernel", "bip340_challenge",
+             "bitcoinconsensus_tpu/ops/sha256.py:206"),
+            ("sh_merkle_level_kernel", "merkle_level",
+             "bitcoinconsensus_tpu/core/block.py:158")):
+        # The compression and the fixed hash run on no path of the system:
+        # their launches are counted around the [sha256] drive, as the toys'.
+        first = next(iter(by_path[sym].values()))
+        kernels.append({
+            "name": name, "route": "cuda", "source": SHA_SOURCE,
+            "replaces": f"{line} (an XLA program of the reference, not a pallas_call)",
+            "launches": first, "launches_by_path": by_path[sym],
+            **sha_entries[sym]})
 
     # -- 5. the kernel prover ----------------------------------------------------
     # The prover's modules are imported only now, so that the main path runs

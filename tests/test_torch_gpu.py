@@ -25,12 +25,14 @@ from bitcoinconsensus_tpu_torch.models.batch import verify_batch
 from bitcoinconsensus_tpu_torch.models.sigcache import ScriptExecutionCache, SigCache
 from bitcoinconsensus_tpu_torch.ops import _build, launch
 from bitcoinconsensus_tpu_torch.ops import limbs as L
+from bitcoinconsensus_tpu_torch.ops import sha256 as SH
 from bitcoinconsensus_tpu_torch.ops import verdict_checksum as VC
 from bitcoinconsensus_tpu_torch.ops import verify_tiles as VT
 from bitcoinconsensus_tpu_torch.resilience import faults as F
 from bitcoinconsensus_tpu_torch.resilience.degrade import DispatchFailed
 from bitcoinconsensus_tpu_torch.ops.contract import run_contract
 from bitcoinconsensus_tpu_torch.utils import blockgen as B
+from bitcoinconsensus_tpu_torch.utils.hashes import tagged_hash
 
 
 def _need_cuda():
@@ -578,3 +580,153 @@ def test_stats_gate_passes_on_cuda():
         cwd=repo, capture_output=True, text=True, timeout=900)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "0 problems" in proc.stderr
+
+
+# -- SHA-256 on the card ------------------------------------------------------------
+
+
+def _u8(rng, *shape):
+    return rng.integers(0, 256, shape, dtype=np.uint8)
+
+
+def _digests(t):
+    return [r.tobytes() for r in t.cpu().numpy()]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", [1, 255, 256, 257, 4097])
+def test_sha256_kernels_match_plain_versions_and_hashlib(width):
+    """Each of csrc/sha256.cu's four kernels against its plain version on the
+    card (tolerance 0) and against hashlib on a sample of lanes, each launch
+    counted on its wrapper."""
+    _need_cuda()
+    rng = np.random.default_rng(width)
+    before = {k: w.launches for k, w in SH.WRAPPERS.items()}
+    pick = sorted(set(rng.integers(0, width, 8).tolist()) | {0, width - 1})
+    state = torch.from_numpy(rng.integers(0, 1 << 32, (8, width), dtype=np.uint32)).cuda()
+    block = torch.from_numpy(rng.integers(0, 1 << 32, (16, width), dtype=np.uint32)).cuda()
+    got = SH.sha256_compress(state, block)
+    assert got.is_cuda and got.dtype == torch.uint32
+    assert np.array_equal(got.cpu().numpy(),
+                          SH.sha256_compress_reference(state, block).cpu().numpy())
+    th = hashlib.sha256(b"TapSighash").digest()
+    ms = SH.tag_midstate("TapSighash")
+    for length in (0, 55, 64, 80, 119, 200):
+        host = _u8(rng, width, length)
+        data = torch.from_numpy(host).cuda()
+        for fn, plain in ((SH.sha256_fixed, SH.sha256_fixed_reference),
+                          (SH.sha256d_fixed, SH.sha256d_fixed_reference)):
+            out = _digests(fn(data))
+            assert out == _digests(plain(data)), (fn.__name__, length)
+            for i in pick:
+                h = hashlib.sha256(host[i].tobytes()).digest()
+                assert out[i] == (h if fn is SH.sha256_fixed else hashlib.sha256(h).digest())
+        lanes = torch.from_numpy(np.repeat(ms[:, None], width, axis=1)).cuda()
+        for midstate in (ms, lanes):
+            out = _digests(SH.sha256_fixed(data, midstate=midstate, prefix_len=64))
+            for i in pick:
+                assert out[i] == hashlib.sha256(th + th + host[i].tobytes()).digest()
+    r, p, m = (_u8(rng, width, 32) for _ in range(3))
+    dev = [torch.from_numpy(x).cuda() for x in (r, p, m)]
+    out = _digests(SH.bip340_challenge(*dev))
+    assert out == _digests(SH.bip340_challenge_reference(*dev))
+    for i in pick:
+        assert out[i] == tagged_hash("BIP0340/challenge", r[i].tobytes()
+                                     + p[i].tobytes() + m[i].tobytes())
+    level = _u8(rng, 2 * width + 1, 32)
+    level[2 * (width // 2) + 1] = level[2 * (width // 2)]  # one equal sibling pair
+    dev_level = torch.from_numpy(level).cuda()
+    flag, plain_flag = (torch.zeros(1, dtype=torch.int32, device="cuda") for _ in range(2))
+    out = _digests(SH.merkle_level(dev_level, flag))
+    assert out == _digests(SH.merkle_level_reference(dev_level, plain_flag))
+    assert flag.item() == plain_flag.item() == 1
+    rows = [x.tobytes() for x in level] + [level[-1].tobytes()]
+    assert out[-1] == hashlib.sha256(hashlib.sha256(rows[-2] + rows[-1]).digest()).digest()
+    after = {k: w.launches for k, w in SH.WRAPPERS.items()}
+    assert after["sh_compress_kernel"] - before["sh_compress_kernel"] == 1
+    assert after["sh_fixed_kernel"] - before["sh_fixed_kernel"] == 6 * 4
+    assert after["sh_challenge_kernel"] - before["sh_challenge_kernel"] == 1
+    assert after["sh_merkle_level_kernel"] - before["sh_merkle_level_kernel"] == 1
+
+
+@pytest.mark.gpu
+def test_sha256_launchers_refuse_other_launches():
+    _need_cuda()
+    fn = launch.bind("sha256", "sh_challenge")
+    x = torch.zeros((300, 32), dtype=torch.uint8, device="cuda")
+    out = torch.empty_like(x)
+    for lanes, grid, threads in ((300, 1, 256), (300, 2, 512), (0, 0, 256)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            launch.call(fn, 0, x.data_ptr(), x.data_ptr(), x.data_ptr(),
+                        out.data_ptr(), lanes, grid, threads)
+    fixed = launch.bind("sha256", "sh_fixed")
+    ms = torch.zeros((8, 1), dtype=torch.uint32, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA error"):  # prefix_len % 64
+        launch.call(fixed, 0, x.data_ptr(), 32, ms.data_ptr(), 1, 32, 0,
+                    out.data_ptr(), 300, 2, 256)
+
+
+@pytest.mark.gpu
+def test_merkle_root_device_on_cuda_matches_the_host():
+    from bitcoinconsensus_tpu_torch.core.block import merkle_root, merkle_root_device
+
+    _need_cuda()
+    rng = np.random.default_rng(77)
+    sets = [[bytes(_u8(rng, 32)) for _ in range(n)] for n in (1, 2, 3, 5, 33, 4097)]
+    sets.append([b"\x11" * 32, b"\x11" * 32, b"\x22" * 32, b"\x33" * 32])
+    sets.append([b"\x44" * 32, b"\x55" * 32, b"\x55" * 32])
+    for leaves in sets:
+        before = SH.merkle_level.launches
+        assert merkle_root_device(leaves) == merkle_root(leaves)
+        assert SH.merkle_level.launches - before == (len(leaves) - 1).bit_length()
+    assert merkle_root_device([]) == (b"\x00" * 32, False)
+
+
+@pytest.mark.gpu
+def test_device_challenge_on_cuda_matches_the_host_hash_path():
+    _need_cuda()
+    checks = _checks(90) + [_collision()]
+    sig = bytearray(checks[4].data[1])
+    sig[40] ^= 1
+    checks[4] = SigCheck("schnorr", (checks[4].data[0], bytes(sig), checks[4].data[2]))
+    want = TorchSecpVerifier(device="cpu", engine="python").verify_checks(checks)
+    v = TorchSecpVerifier(engine="python", device_challenge=True)
+    before = SH.bip340_challenge.launches
+    got = v.verify_checks(checks)
+    assert np.array_equal(got, want) and not got[4]
+    assert SH.bip340_challenge.launches - before == 1
+    assert v.stats["challenge_lanes"] == sum(c.kind == "schnorr" for c in checks)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("corrupt", [None, 96])
+def test_connect_block_with_device_sha_on_cuda_equals_the_native_block(corrupt):
+    """The 200-input block on the Python block layer with the merkle root and
+    the challenges on the card equals the native block layer's result."""
+    _need_cuda()
+    from bitcoinconsensus_tpu_torch.models.validate import Coin, CoinsView, connect_block
+    from bitcoinconsensus_tpu_torch.core.tx import OutPoint, TxOut
+
+    block, entries = _block_200(corrupt)
+    view = native_bridge.NativeCoinsView()
+    view.add_coins_batch(entries)
+    kw = dict(pow_limit=B.REGTEST_POW_LIMIT, sig_cache=SigCache(),
+              script_cache=ScriptExecutionCache())
+    nat = connect_block(block, view, 710_000, verifier=TorchSecpVerifier(), **kw)
+    plain = CoinsView()
+    for t, n, value, h, cb, spk in entries:
+        plain.add(OutPoint(t, n), Coin(TxOut(value, spk), h, cb))
+    before = {k: w.launches for k, w in SH.WRAPPERS.items()}
+    kw.update(sig_cache=SigCache(), script_cache=ScriptExecutionCache())
+    dev = connect_block(block, plain, 710_000, engine="python", device_merkle=True,
+                        verifier=TorchSecpVerifier(engine="python",
+                                                   device_challenge=True), **kw)
+    assert SH.merkle_level.launches > before["sh_merkle_level_kernel"]
+    assert SH.bip340_challenge.launches > before["sh_challenge_kernel"]
+
+    def tup(res):
+        return (res.ok, res.reason, res.fees, res.sigop_cost,
+                [(r.ok, r.error, r.script_error) for r in res.input_results])
+
+    assert tup(dev) == tup(nat) and nat.ok == (corrupt is None)
+    assert len(plain) == len(view)

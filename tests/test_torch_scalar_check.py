@@ -6,7 +6,8 @@ scalar_check.py`) held against the JAX package's (`analysis/scalar_check.py`).
   named below (a fact the port proves in addition, or one that waits for a
   port module);
 - negatives: every planted-unsound schedule is REJECTED with `schedule`
-  violations, and the negative names equal the reference's;
+  violations, and the negative names equal the reference's, with the
+  port's own digest byte-order negative beside them;
 - recoders: the carry automaton's 1,584 lanes and 10,000 seeded values give
   the same signed digits through the JAX package's
   `pallas_kernel._signed_digits128` (jitted on the CPU), the port's torch
@@ -36,6 +37,7 @@ FAST = sorted(sc.all_targets(include_heavy=False))
 PORT_ONLY = {
     "scalar.bytes_to_limbs": {"int_to_limbs[panel]"},
     "scalar._signed_digits128": {"cu_host_enumeration", "cuda_enumeration"},
+    "sha256.bytes_from_words": {"words_from_bytes[32B->8W]"},
 }
 # Facts of the reference not ported yet: the plane congruences of its
 # interval domain (`_prove_cong_planes`), which the port's interval domain
@@ -58,9 +60,7 @@ def test_fast_target_is_theorem_with_the_reference_facts(name):
 
 
 def test_fast_targets_are_the_reference_names_the_port_has():
-    # sha256.bytes_from_words waits for the port's ops/sha256.py.
-    assert set(FAST) == set(ref_sc.all_targets(include_heavy=False)) - {
-        "sha256.bytes_from_words"}
+    assert set(FAST) == set(ref_sc.all_targets(include_heavy=False))
 
 
 @pytest.mark.parametrize("name", sorted(sc.NEGATIVES))
@@ -71,7 +71,9 @@ def test_negative_rejected(name):
 
 
 def test_negative_names_equal_the_reference():
-    assert set(sc.NEGATIVES) == set(ref_sc.NEGATIVES)
+    # The port plants one negative of its own: a little-endian digest unpack
+    # against `sha256.bytes_from_words`.
+    assert set(sc.NEGATIVES) == set(ref_sc.NEGATIVES) | {"scalar-sha256-byte-order"}
 
 
 def test_toy_ladder_selftest_passes():
