@@ -19,6 +19,8 @@ Layout (the JAX package's names, so each counterpart is easy to find):
                 index-mode session and its block and coins-view handles
 - ``models``  — `verify_batch`, `verify_batch_stream`, `connect_block`
                 and the caches
+- ``parallel`` — the sharded verifier: each dispatch spread over a mesh of
+                devices, a fault domain per shard, evictions and probes
 - ``resilience`` — the guards every dispatch settles through (sentinel
                 lanes, the device verdict checksum, validation), the
                 in-flight queue with its retry budget, the fault-injection
@@ -50,7 +52,7 @@ from .api import (
     verify_with_spent_outputs,
     version,
 )
-from . import resilience
+from . import parallel, resilience
 from .core import flags
 from .core.script_error import ScriptError
 from .crypto.bip32 import ExtPubKey, pubkey_derive
@@ -88,6 +90,7 @@ __all__ = [
     "SigCheck",
     "TorchSecpVerifier",
     "connect_block",
+    "parallel",
     "resilience",
     "verify_batch",
     "verify_batch_stream",

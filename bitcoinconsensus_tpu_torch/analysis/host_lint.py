@@ -12,21 +12,23 @@ Those modules must be bit-exact, replayable functions of their inputs:
 - no `random` / `secrets` (verdicts must not depend on entropy),
 - no reading clocks (`time.time`, `datetime.now`, `time.perf_counter`, ...).
 
-The clock rule also runs alone over `crypto/` and `resilience/`. The
-sanctioned clock readers are `obs/spans.py` (spans and `monotonic`) and
-`utils/profiling.py` (`Phases`, `accumulate`, `monotonic`), which times
-through it: ad-hoc `time.perf_counter()` pairs must not drift in beside
-them.
+The clock rule also runs alone over `crypto/`, `parallel/` and
+`resilience/`. The sanctioned clock readers are `obs/spans.py` (spans and
+`monotonic`) and `utils/profiling.py` (`Phases`, `accumulate`,
+`monotonic`), which times through it: ad-hoc `time.perf_counter()` pairs
+must not drift in beside them.
 
-The `sync` rule runs over `crypto/torch_backend.py` and
-`resilience/inflight.py`, the counterparts of the reference's
-`jax_backend.py` and `inflight.py`: forcing a device tensor to the host
+The `sync` rule runs over `crypto/torch_backend.py`,
+`resilience/inflight.py` and `parallel/mesh.py`, the counterparts of the
+reference's `jax_backend.py`, `inflight.py` and `mesh.py`: forcing a device tensor to the host
 (`.cpu()`, `.item()`, `.tolist()`, `.numpy()`, `np.asarray`, `np.array`) or
 waiting for the device (`torch.cuda.synchronize`, an event's
 `.synchronize()`) is a hidden synchronisation point that serialises the
 pipeline and passes the guards by. Only the functions of
 `SYNC_ALLOWED_FUNCS` may, each for the reason it states: as in the
-reference, the settle seam `_materialize_guarded` and `settle_array`.
+reference, the settle seam `_materialize_guarded`, `settle_array` and
+`make_mesh`; the port's settle seams (`_guard_launch`, and the mesh's
+`_ShardedLaunch.settle`) and its host staging.
 
 The scalar-coverage rule (`lint_scalar_recoders`) requires every
 recoder-shaped function of `ops/`, `crypto/glv.py` and the `VT_FN`
@@ -45,7 +47,7 @@ sources.
 
 Rules of the reference that wait: the `precision` and `pallas` rules have no
 torch or CUDA counterpart in the port today; the reference's `sync` targets
-`mesh.py`, `ingress.py` and `sigstore.py` wait for their modules.
+`ingress.py` and `sigstore.py` wait for their modules.
 
 Pure-AST checks (and a regex scan of the `.cu`): no imports of the scanned
 modules, so a syntax-valid file is lintable even when its dependencies are
@@ -78,6 +80,16 @@ SYNC_ALLOWED_FUNCS: Dict[str, str] = {
     "TorchSecpVerifier.__init__": "set-up, once per verifier before any "
     "dispatch: the warm-up launch is waited for so a verify call's time is "
     "its own",
+    "TorchSecpVerifier._guard_launch": "the settle seam's wait and guards, "
+    "shared by the base settle and the mesh's single-device rung",
+    "make_mesh": "parallel/mesh.py: host shaping of the device list, as in "
+    "the reference",
+    "ShardedSecpVerifier._prepare_ticket": "host staging, as the base's: "
+    "numpy views of the host buffers it has just filled, to lay the shards "
+    "out and write their sentinels; no device tensor is touched",
+    "_ShardedLaunch.settle": "parallel/mesh.py: the mesh's settle seam, one "
+    "wait a stream of a sharded dispatch, then numpy views of its pinned "
+    "results, held to the guards shard by shard before anything reads them",
 }
 # module.attr calls that force a device->host copy.
 SYNC_BANNED_CALLS = {
@@ -227,15 +239,17 @@ def _pkg(repo_root: str) -> str:
 
 
 def lint_consensus_host(repo_root: str) -> List[LintFinding]:
-    """Full rules over core/ + models/; the clock rule alone over crypto/
-    and resilience/; the sync rule over the verifier's dispatch path and the
-    in-flight queue."""
+    """Full rules over core/ + models/; the clock rule alone over crypto/,
+    parallel/ and resilience/; the sync rule over the verifier's dispatch
+    path, the mesh and the in-flight queue."""
     pkg = _pkg(repo_root)
     findings = lint_paths([os.path.join(pkg, "core"),
                            os.path.join(pkg, "models")])
     findings += lint_paths([os.path.join(pkg, "crypto"),
+                            os.path.join(pkg, "parallel"),
                             os.path.join(pkg, "resilience")], rules=TIMING_RULES)
     findings += lint_paths([os.path.join(pkg, "crypto", "torch_backend.py"),
+                            os.path.join(pkg, "parallel", "mesh.py"),
                             os.path.join(pkg, "resilience", "inflight.py")],
                            rules=SYNC_RULES)
     return findings

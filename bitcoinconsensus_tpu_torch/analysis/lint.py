@@ -36,7 +36,9 @@ violation. Exit 0 if and only if all hold.
 
 `--host` is the host lint (`analysis/host_lint.py`): the float,
 nondeterminism and clock rules over `core/` and `models/`, the clock rule
-over `crypto/`, the sync rule over `crypto/torch_backend.py`, scalar
+over `crypto/`, `parallel/` and `resilience/`, the sync rule over
+`crypto/torch_backend.py`, `parallel/mesh.py` and
+`resilience/inflight.py`, scalar
 coverage over `ops/`, `crypto/glv.py` and `csrc/verify_tiles.cu`, and region
 coverage (every kernel of `csrc/*.cu` mapped in `ops/regions.py`). Exit 0
 if and only if it finds nothing.
@@ -162,9 +164,9 @@ def _host() -> int:
     from . import host_lint
 
     repo = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    print("== host lint (core/, models/; clock rule over crypto/ and "
-          "resilience/; sync rule over crypto/torch_backend.py and "
-          "resilience/inflight.py) ==")
+    print("== host lint (core/, models/; clock rule over crypto/, parallel/ "
+          "and resilience/; sync rule over crypto/torch_backend.py, "
+          "parallel/mesh.py and resilience/inflight.py) ==")
     findings = host_lint.lint_consensus_host(repo)
     print("\n== scalar-recoder coverage (ops/, crypto/glv.py, "
           "csrc/verify_tiles.cu) ==")

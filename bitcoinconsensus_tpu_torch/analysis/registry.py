@@ -14,7 +14,10 @@ complete adds, `double_scalar_mult_glv`, `mxu.fe_mul_onehot`,
 `jax_backend.verify_kernel`) are not registered; ROADMAP.md lists them with
 their modules. The reference's `jax_backend.verdict_checksum` is the port's
 `cuda.verdict_checksum`, the launch contract and body of
-`csrc/verdict_checksum.cu`. The reference's `sha256.compress` and
+`csrc/verdict_checksum.cu`; the device half of the reference's
+`parallel/mesh.py::make_sharded_step` (each shard's checksum pair and
+failure count) is `cuda.shard_step`, the launch contract and body of
+`csrc/shard_step.cu`. The reference's `sha256.compress` and
 `sha256.bip340_challenge` are held over the port's plain versions
 (`ops/sha256.py`, int64 words masked to 32 bits), whose every intermediate
 the prover holds inside int64 and whose words inside [0, 2^32); the four
@@ -46,6 +49,7 @@ import torch
 from ..ops import curve as C
 from ..ops import limbs as L
 from ..ops import sha256 as SH
+from ..ops import shard_step as SS
 from ..ops import verdict_checksum as VC
 from ..ops import verify_tiles as VT
 from . import interval, kernel_check
@@ -130,6 +134,27 @@ def _verdict_checksum() -> interval.Report:
             f"cuda.verdict_checksum[{B}]", in_bounds={0: (0, 1)},
             out_within=[[(0, B), (0, VC.CHECKSUM_MOD * B)]], report=rep)
         rep.notes.append(f"contract and body proven at {B} lanes")
+    return rep
+
+
+# (shards, rows a shard): one row; the chip's mesh layouts (2 x 4,096,
+# 4 x 2,048, 8 x 1,024); and one shard at the most rows the kernel takes,
+# where the weighted sum comes closest to the int32 edge (251 * 2^23 < 2^31).
+SHARD_STEP_LAYOUTS = ((1, 1), (2, 4096), (4, 2048), (8, 1024), (1, SS.MAX_LANES))
+
+
+def _shard_step() -> interval.Report:
+    rep = interval.Report(name="cuda.shard_step")
+    for d, rows in SHARD_STEP_LAYOUTS:
+        spec = interval.TensorSpec((d, rows), torch.bool)
+        # rows of the (3, 1) output window: count <= S; weighted <= 251 * S;
+        # failures <= S
+        kernel_check.check_contract(
+            SS.SHARD_EPILOGUE_CONTRACT, [spec] * 3, f"cuda.shard_step[{d}x{rows}]",
+            in_bounds={i: (0, 1) for i in range(3)},
+            out_within=[[(0, rows), (0, SS.CHECKSUM_MOD * rows), (0, rows)]],
+            report=rep)
+        rep.notes.append(f"contract and body proven at {d} x {rows}")
     return rep
 
 
@@ -235,6 +260,11 @@ def _specs() -> List[KernelSpec]:
                         "csrc/verdict_checksum.cu at "
                         f"{', '.join(map(str, VERDICT_CHECKSUM_WIDTHS))} lanes: "
                         "one block, both sums inside int32"),
+        KernelSpec("cuda.shard_step", _shard_step,
+                   note="launch contract and int32 body of csrc/shard_step.cu "
+                        "at " + ", ".join(f"{d} x {r}" for d, r in SHARD_STEP_LAYOUTS)
+                        + " (shards x rows): one block a shard, the three sums "
+                        "inside int32"),
         *_sha_specs(),
         KernelSpec("cuda.verify_tiles.body", _verify_tiles_body, heavy=True,
                    note="interval proof of the plain version "

@@ -355,6 +355,9 @@ class TorchSecpVerifier:
         self.stats: Dict[str, float] = defaultdict(float)
         self.phases = Phases()
         self._seen_shapes: set = set()
+        # Set where a host fixup rejects a lane the kernel deferred (here or
+        # in an index-mode driver): the mesh's block verdict reads it.
+        self._fixup_failed = False
         # The guards: the device checksum rides every dispatch unless
         # BITCOINCONSENSUS_TPU_CHECKSUM is 0 or off; the queue's depth bounds
         # how far a caller runs ahead, its deadline how long a ticket retries.
@@ -363,7 +366,7 @@ class TorchSecpVerifier:
         self._inflight = InflightQueue(
             DispatchResilience(), self._SITE, launch=self._launch_ticket,
             materialize=self._materialize_guarded, prepare=self._prepare_ticket,
-            stats=self.stats,
+            on_device=self._on_device_settle, stats=self.stats,
             max_depth=int(os.environ.get("BITCOINCONSENSUS_TPU_INFLIGHT_DEPTH", "4")),
             deadline_s=float(os.environ.get(
                 "BITCOINCONSENSUS_TPU_SETTLE_DEADLINE_S", "8.0")),
@@ -497,24 +500,34 @@ class TorchSecpVerifier:
 
     # -- the guarded dispatch: the in-flight queue's callbacks ----------------
 
-    def _prepare_ticket(self, args, n: int):
-        """Stage one packed 7-tuple for its ticket: a copy the relaunches of
-        a retry read from (pinned on a card), with the rotating known-answer
-        sentinel lanes written into its pad rows. The caller's arrays stay
-        as they were packed. Returns (staged tensors, SentinelSet)."""
+    def _stage(self, args) -> Tuple[torch.Tensor, ...]:
+        """A copy of a packed 7-tuple as host tensors (pinned on a card), for
+        the launches of a ticket to read from; the caller's arrays stay as
+        they were packed."""
         host = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in args)
         if self.device.type == "cuda":
-            host = tuple(t.pin_memory() for t in host)
-        else:
-            host = tuple(t.clone() for t in host)
-        sset = _guards.install_sentinels(tuple(t.numpy() for t in host), n)
+            return tuple(t.pin_memory() for t in host)
+        return tuple(t.clone() for t in host)
+
+    def _prepare_ticket(self, args, n: int):
+        """Stage one packed 7-tuple for its ticket (`_stage`), with the
+        rotating known-answer sentinel lanes written into the staged pad
+        rows. Returns (staged tensors, SentinelSet)."""
+        host = self._stage(args)
+        return host, self._install_sentinels(tuple(t.numpy() for t in host), n)
+
+    def _install_sentinels(self, views, n: int):
+        """The sentinel lanes written into the pad rows of staged numpy
+        views, and the staging counted; returns the SentinelSet (None where
+        a caller packed exactly n lanes)."""
+        sset = _guards.install_sentinels(views, n)
         if sset is None:  # no pad row: a caller packed exactly n lanes
             self.stats["sentinel_skipped"] += 1
         else:
             self.stats["sentinel_lanes"] += len(sset.positions)
         self.stats["lanes"] += n
-        self.stats["padded_lanes"] += int(host[0].shape[0])
-        return host, sset
+        self.stats["padded_lanes"] += int(views[0].shape[0])
+        return sset
 
     def _launch_ticket(self, host, n: int, sset):
         """Upload a ticket's staged lanes and launch the verify kernel, then
@@ -525,7 +538,8 @@ class TorchSecpVerifier:
         or None)."""
         _faults.maybe_raise("torch_backend.dispatch")
         self.stats["dispatches"] += 1
-        self._note_dispatch(int(host[0].shape[0]), n)
+        self._note_dispatch(int(host[0].shape[0]), n,
+                            "cuda" if self.device.type == "cuda" else "torch")
         with region_scope("dispatch"):
             if self.device.type != "cuda":
                 ok, needs = verify_tiles(*host)
@@ -549,9 +563,11 @@ class TorchSecpVerifier:
             return (_Launched(back[0], back[1], events, done),
                     back[2] if self._checksum else None)
 
-    def _note_dispatch(self, padded: int, n: int) -> None:
-        """Dispatch accounting, once per launch (a relaunch counts again)."""
-        _DISPATCH_TOTAL.inc(backend="cuda" if self.device.type == "cuda" else "torch")
+    def _note_dispatch(self, padded: int, n: int, backend: str) -> None:
+        """Dispatch accounting, once per launch (a relaunch counts again),
+        under the level's label: `cuda` or `torch` here, `mesh` for a
+        sharded dispatch."""
+        _DISPATCH_TOTAL.inc(backend=backend)
         _DISPATCH_LANES.inc(n)
         _DISPATCH_PADDED.inc(padded)
         if padded:
@@ -562,27 +578,50 @@ class TorchSecpVerifier:
 
     def _materialize_guarded(self, ticket: Ticket):
         """The settle seam, the one place a dispatch's verdicts reach the
-        host: one wait for the launch's copies, then the guards over the
-        padded buffers: `validate_verdict` on `ok` (after the
-        `torch_backend.verdict` fault hook) and `needs`, the sentinels, and
-        the device checksum against the sums of the `ok` received. Returns
-        padded (ok, needs) bool arrays; raises `VerdictAnomaly`."""
+        host (`_guard_launch`). Returns padded (ok, needs) bool arrays and
+        `all_ok`, the sharded step's verdict, None off the mesh; raises
+        `VerdictAnomaly`."""
+        ok, needs = self._guard_launch(ticket.result, ticket.aux, ticket.sset,
+                                       int(ticket.args[0].shape[0]))
+        return ok, needs, None
+
+    def _guard_launch(self, res: "_Launched", aux, sset, padded: int):
+        """One wait for a launch's copies, then the guards over its padded
+        buffers: `validate_verdict` on `ok` (after the `torch_backend.verdict`
+        fault hook) and `needs`, the sentinels of `sset`, and the device
+        checksum `aux` against the sums of the `ok` received. Returns padded
+        (ok, needs) bool arrays; raises `VerdictAnomaly`."""
         with region_scope("settle"):
-            res = ticket.result
             if res.done is not None:
                 with accumulate(self.stats, "device_wait_s"):
                     res.done.synchronize()
-            padded = int(ticket.args[0].shape[0])
             ok_raw = _faults.corrupt_verdict("torch_backend.verdict", res.ok.numpy())
             ok = _guards.validate_verdict(ok_raw, padded, self._SITE)
             needs = _guards.validate_verdict(res.needs.numpy(), padded, self._SITE)
-            _guards.check_sentinels(ticket.sset, ok, needs, self._SITE)
-            if ticket.aux is not None:
-                sums = ticket.aux.numpy()
+            _guards.check_sentinels(sset, ok, needs, self._SITE)
+            if aux is not None:
+                sums = aux.numpy()
                 _guards.check_checksum((int(sums[0]), int(sums[1])), ok, self._SITE)
             if res.events is not None:
                 self.stats["kernel_ms"] += res.events[0].elapsed_time(res.events[1])
             return ok, needs
+
+    # -- the verdict accounting the mesh overrides -------------------------------
+
+    def _on_device_settle(self, ticket: Ticket, ok, needs, all_ok) -> None:
+        """The in-flight queue's success hook: exactly once per ticket that
+        settles clean, so a retried ticket is never counted twice."""
+        self._note_device_verdict(all_ok, ok, needs, ticket.n)
+
+    def _note_device_verdict(self, all_ok, ok, needs, count: int) -> None:
+        """A dispatch of `count` lanes passed every guard. The single-device
+        verifier keeps no verdict over a whole call; the mesh ANDs its
+        block verdict here."""
+
+    def _note_host_lanes(self, results: np.ndarray) -> None:
+        """Lanes resolved on the host instead of the device. The port's
+        verifier never hands a dispatch to the host; the hook keeps the
+        reference's seam for the mesh's accounting."""
 
     def verify_checks(self, checks: Sequence[SigCheck]) -> np.ndarray:
         """Verify a mixed batch; returns a bool array aligned with `checks`:
@@ -645,7 +684,10 @@ class TorchSecpVerifier:
                 HOST_FIXUPS.inc(len(fix))
             with accumulate(self.stats, "fixup_s"):
                 for i in fix:
-                    out[start + int(i)] = self._host_check(checks[start + int(i)])
+                    r = self._host_check(checks[start + int(i)])
+                    out[start + int(i)] = r
+                    if not r:
+                        self._fixup_failed = True
                     self.stats["fixups"] += 1
         return out
 

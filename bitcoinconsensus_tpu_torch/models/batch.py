@@ -755,6 +755,8 @@ def _settle_uniq(nsess, verifier, sig_cache, state: _UniqState, round_rec) -> No
             with accumulate(verifier.stats, "fixup_s"):
                 for t in fix:
                     okv[t] = nsess.uniq_host_verify(int(sub[t]))
+                    if not okv[t]:
+                        verifier._fixup_failed = True
                 verifier.stats["fixups"] += len(fix)
         state.val[sub] = okv
         with _span("batch.sig_cache_insert"):

@@ -12,7 +12,9 @@ rejection), `verify_batch` in index mode, in the wire driver and on the
 Python engine (a mixed batch with one bad input, then a replay that hits
 both caches), `verify_batch_stream`, `connect_block` on a `NativeCoinsView`
 (a valid block, then its replay, rejected), a dispatch with a fault
-injected (retried clean), the fast scalar-schedule certificates and, on the
+injected (retried clean), the mesh (one sharded dispatch over a 4-entry
+mesh on the device, then one injected device loss that evicts an entry with
+`evict_after=1`), the fast scalar-schedule certificates and, on the
 card, a device capture (`obs/xprof.py`); the flight recorder is armed for
 the last part and triggered once. `--check` exits 1 when a metric of
 `required_metrics(device)` is missing or has no sample, or a value is not
@@ -24,13 +26,13 @@ light are the earlier leg's own.
 `REQUIRED_METRICS` keeps the reference's names for the layers the port
 has. The groups the port has not yet, each with the item of the roadmap's
 Queue 1 that brings it:
-- mesh (`consensus_mesh_*`): item 2, device SHA-256, merkle and the mesh;
 - serving, ingress, the persistent sigstore and the cell
   (`consensus_serving_*`, `consensus_ingress_*`, `consensus_sigstore_*`,
   `consensus_cell_*`): item 3;
 - the adversarial gauntlet (`consensus_gauntlet_*`): item 4, workloads.
 `consensus_resilience_level` (the ladder's gauge) is left out for good: the
-port has no ladder. The device-truth group needs the card: with
+port has no ladder. As in the reference, `consensus_mesh_repromotions_total`
+is not required: only a re-promotion probe lights it. The device-truth group needs the card: with
 `--device cpu` it is not required, since `xprof.capture_report` raises
 without one.
 """
@@ -38,6 +40,7 @@ without one.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import os
 import sys
 from typing import Dict, List, Tuple
@@ -72,6 +75,15 @@ REQUIRED_METRICS: Dict[str, Tuple[str, ...]] = {
         "consensus_dispatch_padded_lanes_total",
         "consensus_dispatch_fill_ratio",
         "consensus_dispatch_new_shapes_total",
+    ),
+    "mesh": (
+        "consensus_mesh_devices",
+        "consensus_mesh_dispatch_total",
+        "consensus_mesh_shard_lanes",
+        "consensus_mesh_healthy_devices",
+        "consensus_mesh_shard_failures_total",
+        "consensus_mesh_evictions_total",
+        "consensus_mesh_redispatch_lanes_total",
     ),
     "block": (
         "consensus_blocks_total",
@@ -148,10 +160,11 @@ def run_workload(device: str = "cuda") -> dict:
     from ..analysis import scalar_check
     from ..core.flags import VERIFY_ALL_EXTENDED
     from ..crypto import glv
-    from ..crypto.torch_backend import TorchSecpVerifier
+    from ..crypto.torch_backend import SigCheck, TorchSecpVerifier
     from ..models.batch import BatchItem, verify_batch, verify_batch_stream
     from ..models.sigcache import ScriptExecutionCache, SigCache
     from ..models.validate import connect_block
+    from ..parallel import ShardedSecpVerifier, make_mesh
     from ..resilience import FaultPlan, FaultSpec, inject
     from ..utils import blockgen
     from . import flight, spans, xprof
@@ -236,6 +249,22 @@ def run_workload(device: str = "cuda") -> dict:
                                           script_cache=ScriptExecutionCache())]
     if got != want or not verifier.stats["retries"]:
         raise AssertionError("the injected fault was not retried to the clean verdicts")
+
+    # -- mesh: one sharded dispatch over 4 entries on the device, then one
+    # injected device loss, which evicts an entry and answers its lanes again
+    # over the survivors ------------------------------------------------------
+    w = blockgen.Wallet("stats-mesh", "p2wpkh")
+    msg = hashlib.sha256(b"stats-mesh-msg").digest()
+    mchecks = [SigCheck("ecdsa", (w.pub, blockgen.sign_ecdsa(w.sk, msg), msg))] * 4
+    sv = ShardedSecpVerifier(mesh=make_mesh(devices=[dev] * 4))
+    res, verdict = sv.verify_checks_with_verdict(mchecks)
+    if not (verdict and res.all()):
+        raise AssertionError(f"the mesh gave {res.tolist()}, verdict {verdict}")
+    sv2 = ShardedSecpVerifier(mesh=make_mesh(devices=[dev] * 4), evict_after=1)
+    with inject(FaultPlan([FaultSpec("mesh.shard.1", "device-loss")]), seed=0):
+        res2, verdict2 = sv2.verify_checks_with_verdict(mchecks)
+    if not (verdict2 and res2.all()) or sv2.mesh.size != 3:
+        raise AssertionError("the mesh did not evict the lost entry and answer again")
 
     # -- the scalar-schedule prover's fast certificates; the GLV range guard's
     # explicit zero samples (the split ran inside its proven bound) ----------

@@ -49,13 +49,16 @@ REGION_PREFIX = "region:"
 # the checksum the reference's (`crypto/jax_backend.py:379`); each toy of
 # `csrc/toy_kernels.cu` gets its own (`tk_window_copy_kernel` serves the
 # out-of-bounds and double-write launchers alike); the two probes of
-# `verify_tiles.cu`'s device functions get theirs. The SHA-256 kernels keep
+# `verify_tiles.cu`'s device functions get theirs. The mesh's epilogue keeps
+# the region of the reference's sharded step (`parallel/mesh.py:205`). The
+# SHA-256 kernels keep
 # the reference's regions (`ops/sha256.py:79`, `:205`): the compression, the
 # fixed-length hashes and a merkle level all ran inside `sha256_compress`'s
 # scope there, and the challenge inside `sighash_prep`.
 KERNEL_REGIONS: Dict[str, str] = {
     "vt_verify_kernel": "verify_tiles",
     "vc_checksum_kernel": "verdict_checksum",
+    "ss_epilogue_kernel": "shard_step",
     "vt_recode_kernel": "vt_recode",
     "vt_field_kernel": "vt_field_op",
     "sh_compress_kernel": "sha256_compress",

@@ -8,15 +8,17 @@ or an exception, never a verdict:
 
 - ``faults``: the deterministic, seeded fault-injection harness, with its
   sites in `crypto/torch_backend.py` (`torch_backend.dispatch`,
-  `torch_backend.verdict`), `models/batch.py` (`batch.dispatch`) and
-  `models/sigcache.py` (`sigcache.<label>`). Disarmed, each hook is one
-  module-global read.
+  `torch_backend.verdict`), `models/batch.py` (`batch.dispatch`),
+  `models/sigcache.py` (`sigcache.<label>`) and `parallel/mesh.py`
+  (`mesh.dispatch`, `mesh.shard.<i>`, `mesh.probe`). Disarmed, each hook
+  is one module-global read.
 - ``guards``: every device return is validated (shape, domain,
   finiteness), checked on its known-answer sentinel lanes and against the
   device verdict checksum (`ops/verdict_checksum.py`); and the opt-in audit
   of signature-cache hits.
-- ``degrade``: the retry budget (`DispatchResilience`) and
-  `DispatchFailed`.
+- ``degrade``: the retry budget (`DispatchResilience`), `DispatchFailed`,
+  and the mesh's per-entry health (`ShardLadder`: eviction and
+  re-promotion probes).
 - ``inflight``: the in-flight queue. Every dispatch of
   `TorchSecpVerifier` returns a ticket; every ticket settles through the
   guards and the retry budget before a verdict is believed, and raises

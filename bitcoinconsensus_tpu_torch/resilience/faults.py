@@ -23,12 +23,18 @@ Sites of the port (grep for the literal):
     batch.dispatch          raise where a batch driver dispatches
     sigcache.<label>        a fabricated hit on a cache probe
                             (`sigcache.sig`, `sigcache.script`)
+    mesh.dispatch           raise/timeout/device-loss at a sharded launch
+    mesh.shard.<i>          per-shard settle of a sharded dispatch: any
+                            raise kind (device-loss included), any
+                            corruption of shard i's verdict slice, and
+                            `straggle` (simulated lag, read by
+                            `shard_delay`)
+    mesh.probe              raise kinds at a re-promotion probe
 
-The reference's mesh kinds, `device-loss` (a shard's device lost) and
-`straggle` (a shard's simulated lag, read by `shard_delay`), keep their
-names in `FaultSpec` so that a plan reads the same, but no site of the port
-consumes them until the port has a mesh. `fired` counts the faults fired by
-(site, kind), and so does `consensus_resilience_faults_injected_total`.
+`device-loss` raises `InjectedDeviceLoss`, which the mesh's settle counts
+as a per-shard hardware failure feeding its eviction ladder. `fired` counts
+the faults fired by (site, kind), and so does
+`consensus_resilience_faults_injected_total`.
 
 Host-side policy, never consensus: it reads no clock.
 """
@@ -48,6 +54,7 @@ __all__ = [
     "FaultPlan",
     "FaultSpec",
     "FaultInjector",
+    "InjectedDeviceLoss",
     "InjectedFault",
     "InjectedTimeout",
     "active",
@@ -55,6 +62,7 @@ __all__ = [
     "inject",
     "maybe_raise",
     "poison_hit",
+    "shard_delay",
 ]
 
 _FAULTS_FIRED = _obs_counter(
@@ -65,8 +73,9 @@ _FAULTS_FIRED = _obs_counter(
 
 # `corrupt_verdict` consumes the corruption kinds, `maybe_raise` the raise
 # kinds, so one plan can arm both on one site.
-_RAISE_KINDS = ("raise", "timeout")
+_RAISE_KINDS = ("raise", "timeout", "device-loss")
 _CORRUPT_KINDS = ("invert", "flip", "value", "nan", "garbage", "shape")
+_STRAGGLE_KINDS = ("straggle",)
 
 
 class InjectedFault(RuntimeError):
@@ -82,11 +91,19 @@ class InjectedTimeout(InjectedFault):
     """An injected dispatch timeout (a type of its own)."""
 
 
+class InjectedDeviceLoss(InjectedFault):
+    """An injected device loss (a type of its own: the mesh's settle counts
+    it as a per-shard hardware failure feeding the eviction ladder)."""
+
+
 @dataclass
 class FaultSpec:
     """One armed fault: fire `kind` at `site` up to `count` times.
 
     kind: "raise" | "timeout" -> maybe_raise sites
+          "device-loss"       -> maybe_raise sites (InjectedDeviceLoss)
+          "straggle"          -> shard_delay sites report `value` seconds
+                                 of simulated shard lag
           "invert"            -> logical NOT of the whole buffer
           "flip"              -> flip `lanes` PRNG-chosen lanes
           "value"             -> set `lanes` lanes to `value` (int32 cast:
@@ -95,8 +112,6 @@ class FaultSpec:
           "garbage"           -> the whole buffer PRNG int32 noise
           "shape"             -> the buffer cut short by one lane
           "poison"            -> poison_hit sites report a hit
-          "device-loss" | "straggle" -> the reference's mesh kinds (no site
-                                 of the port consumes them yet)
     """
 
     site: str
@@ -163,7 +178,8 @@ def inject(plan: FaultPlan, seed: int = 0):
 
 
 def maybe_raise(site: str) -> None:
-    """Dispatch-site hook: raises when a raise or timeout fault is armed."""
+    """Dispatch-site hook: raises when a raise, timeout or device-loss fault
+    is armed."""
     inj = _active
     if inj is None:
         return
@@ -172,7 +188,23 @@ def maybe_raise(site: str) -> None:
         return
     if spec.kind == "timeout":
         raise InjectedTimeout(site, spec.kind)
+    if spec.kind == "device-loss":
+        raise InjectedDeviceLoss(site, spec.kind)
     raise InjectedFault(site, spec.kind)
+
+
+def shard_delay(site: str) -> float:
+    """Shard-settle hook: seconds of simulated lag for this shard, 0.0 when
+    disarmed (one module-global read). The mesh's settle adds it to the
+    shard's observed elapsed time, so an armed `straggle` past the per-shard
+    deadline drives the deadline path without sleeping."""
+    inj = _active
+    if inj is None:
+        return 0.0
+    spec = inj._take(site, _STRAGGLE_KINDS)
+    if spec is None:
+        return 0.0
+    return float(spec.value)
 
 
 def poison_hit(site: str) -> bool:

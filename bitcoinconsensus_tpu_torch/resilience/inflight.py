@@ -21,6 +21,10 @@ port's rule a failed guard is not demoted to a slower backend. A CUDA error
 that leaves the device context unusable (an illegal address, a launch
 failure) is not retried: it raises at once.
 
+On a clean settle the optional `on_device` hook runs once (the verifier's
+verdict accounting, so a retried ticket never counts twice); `drain()`
+settles every ticket still in flight, oldest first.
+
 Settling is idempotent and order-independent: a ticket resolves once, and
 settling it again returns the same outcome or raises the same
 `DispatchFailed`. Backpressure resolves the oldest ticket before its owner
@@ -179,8 +183,13 @@ class InflightQueue:
       return unsynchronised tensors and the in-flight checksum (or None).
       It must not wait. An exception is kept on the ticket and settled as a
       failure;
-    - `materialize(ticket) -> (ok, needs)`: the settle seam: wait, run the
-      fault hooks and the guards; raises on a buffer they reject.
+    - `materialize(ticket) -> (ok, needs[, all_ok])`: the settle seam:
+      wait, run the fault hooks and the guards; raises on a buffer they
+      reject. `all_ok` is the sharded step's verdict over the device's lanes
+      (None, or left out, off the mesh);
+    - `on_device(ticket, ok, needs, all_ok)`, optional: the verdict
+      accounting hook, called exactly once per ticket that settles clean,
+      so a retried ticket is never counted twice.
     """
 
     def __init__(
@@ -188,8 +197,9 @@ class InflightQueue:
         resilience: DispatchResilience,
         site: str,
         launch: Callable[[Any, int, Any], Tuple[Any, Any]],
-        materialize: Callable[[Ticket], Tuple[np.ndarray, np.ndarray]],
+        materialize: Callable[[Ticket], Tuple],
         prepare: Optional[Callable[[Any, int], Tuple[Any, Any]]] = None,
+        on_device: Optional[Callable[..., None]] = None,
         stats=None,
         max_depth: int = 4,
         deadline_s: float = 8.0,
@@ -200,6 +210,7 @@ class InflightQueue:
         self._launch_cb = launch
         self._materialize = materialize
         self._prepare = prepare
+        self._on_device = on_device
         self.stats = stats if stats is not None else defaultdict(float)
         self.max_depth = max(1, int(max_depth))
         self.deadline_s = float(deadline_s)
@@ -275,11 +286,17 @@ class InflightQueue:
             if failure is None:
                 ticket.timeline.stamp("settle_start")
                 try:
-                    ticket.outcome = self._materialize(ticket)
-                    _SETTLE_SECONDS.observe(monotonic() - ticket.born)
-                    break
+                    got = self._materialize(ticket)
                 except Exception as exc:
                     failure = exc
+                else:
+                    ok, needs = got[0], got[1]
+                    _SETTLE_SECONDS.observe(monotonic() - ticket.born)
+                    if self._on_device is not None:
+                        self._on_device(ticket, ok, needs,
+                                        got[2] if len(got) > 2 else None)
+                    ticket.outcome = (ok, needs)
+                    break
             stats["settle_failures"] += 1
             if isinstance(failure, VerdictAnomaly):
                 stats["guard_anomalies"] += 1
@@ -316,3 +333,10 @@ class InflightQueue:
     @property
     def depth(self) -> int:
         return len(self._pending)
+
+    def drain(self) -> None:
+        """Settle everything still in flight, oldest first; a failure stays
+        on its ticket for its owner."""
+        with self._lock:
+            while self._pending:
+                self._resolve(self._pending[0])

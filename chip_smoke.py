@@ -7,8 +7,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. The card: nvidia-smi name and power limit, torch and CUDA versions.
 2. Build every kernel from `bitcoinconsensus_tpu_torch/csrc` with nvcc (the
-   verify kernel, the verdict checksum, the four SHA-256 kernels and the
-   toys), and
+   verify kernel, the verdict checksum, the four SHA-256 kernels, the
+   mesh's shard-step epilogue and the toys), and
    the native host core (`csrc/native/`) and the host build of the verify
    kernel's lane program (`csrc/verify_tiles_host.cpp`, for the scalar
    prover) with g++, one process per source, all started together; print
@@ -133,9 +133,33 @@ Phases, each printing its own lines; any failure exits non-zero:
 7. `[stats]`: the stats gate (`python -m bitcoinconsensus_tpu_torch.obs.stats
    --check --device cuda`, in this process): every metric the ported
    layers must light has samples (snapshot in the output directory).
-8. A `kernels` JSON line (with each path's launches of `verify_tiles`,
-   `verdict_checksum` and the SHA-256 kernels), the card line, and the
-   result line.
+8. The mesh (`parallel/mesh.py`), after everything above so that those
+   phases run in the state they had before it. `[shard_step]`: the
+   epilogue kernel `ss_epilogue_kernel` against its plain version at 2 x
+   4,096, 4 x 2,048, 8 x 1,024 and 4 x 16 rows (seeded, all-true and
+   all-false buffers; differing words 0), with its time per call, device
+   time, plain time, bound and the fewest PyTorch calls for the same
+   triple, in turns. `[mesh]`: a ShardedSecpVerifier over 4 entries of
+   cuda:0, each on its own stream: the main path's inputs through
+   `verify_batch`, the config-5 block through `connect_block` and the
+   stream's 5 batches, each with its launches counted around it alone
+   (the verify kernel once a shard, the epilogue once a sharded dispatch,
+   the checksum kernel never) and every verdict equal to the single-device
+   runs'; `verify_checks_with_verdict`'s all_ok on a clean and a bad batch;
+   the main path sharded against single in turns (a figure for the record,
+   not a claim); and `make_mesh()` on the one card, which must dispatch as
+   the base verifier (mesh_dispatches=0). NCCL and peer copies between
+   cards are not exercised: the entries share one card. `[mesh_faults]`:
+   the fault harness on that mesh, one line a case (a flip convicted by its
+   shard's checksum, a device loss that evicts and rebuilds over 3 entries,
+   re-promotion after a clean probe, a failed probe, a straggle past the
+   shard deadline, every shard failing into DispatchFailed), each
+   `held=True wrong_accepts=0`. `[xprof]` of one sharded dispatch:
+   `ss_epilogue_kernel` charged to `shard_step`, `vt_verify_kernel` to
+   `verify_tiles`.
+9. A `kernels` JSON line (with each path's launches of `verify_tiles`,
+   `verdict_checksum`, the epilogue and the SHA-256 kernels), the card
+   line, and the result line.
 
 The script needs the repository beside it; with no CUDA device, or alone in
 a directory, it exits non-zero without a result. `--rehearse-cpu` runs the
@@ -1396,6 +1420,384 @@ def _stats_phase(rehearse, out_dir) -> None:
         _fail(f"[stats]: required metrics without samples: {missing}")
 
 
+# The mesh's layouts on the card (shards x rows a shard): the main path's
+# dispatches at 2, 4 and 8 entries, and a small batch at 4.
+SHARD_LAYOUTS = ((2, 4096), (4, 2048), (8, 1024), (4, 16))
+MESH_ENTRIES = 4
+MESH_SOURCE = "bitcoinconsensus_tpu_torch/csrc/shard_step.cu"
+
+
+def _shard_step_phase(device, rng, rehearse):
+    """`[shard_step]`: the epilogue kernel against its plain version at every
+    layout of SHARD_LAYOUTS, on seeded random, all-true and all-false
+    buffers (differing words, 0), then at each layout its time per call
+    (CUDA events, the wrapper's host cost included) in turns with the fewest
+    PyTorch calls for the same triple (`library_ms`: the failure mask, then
+    one batched float32 product of (ok, failures) by (ones, weights), exact
+    below 2^24), its device time (torch.profiler), the plain version's time
+    and its bound: 3 bytes read a row and 12 written a shard over the memory
+    rate, 6 int32 operations a row over the int32 rate. Returns the
+    kernels-line entry at 4 x 2,048 rows (the main path's layout)."""
+    import numpy as np
+    import torch
+
+    from bitcoinconsensus_tpu_torch.ops import shard_step as SS
+
+    differing = max_err = 0
+    entry = None
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # the library call in full float32
+    try:
+        for d, rows in SHARD_LAYOUTS:
+            B = d * rows
+            bufs = [rng.integers(0, 2, (3, B)).astype(bool), np.ones((3, B), bool),
+                    np.zeros((3, B), bool)]
+            for buf in bufs:
+                ok, needs, live = (torch.from_numpy(x.copy()).to(device) for x in buf)
+                got = SS.shard_epilogue(ok, needs, live, d).cpu().long()
+                want = SS.shard_epilogue_reference(ok, needs, live, d).cpu()
+                differing += int((got != want).sum())
+                max_err = max(max_err, int((got - want).abs().max()))
+            ok, needs, live = (torch.from_numpy(x.copy()).to(device) for x in bufs[0])
+            w = torch.stack((torch.ones(rows), torch.arange(rows) % SS.CHECKSUM_MOD + 1.0)
+                            ).to(device=device, dtype=torch.float32)
+
+            def library(ok=ok, needs=needs, live=live, w=w, d=d, rows=rows):
+                fails = live & ~(ok | needs)
+                m = torch.stack((ok, fails)).view(2, d, rows).to(torch.float32)
+                return torch.matmul(m, w.T)  # [0]: (count, wsum); [1]: (failures, -)
+
+            lib = library().cpu()
+            kern = SS.shard_epilogue(ok, needs, live, d).cpu()
+            lib_err = max(int((lib[0, :, 0].long() - kern[0]).abs().max()),
+                          int((lib[0, :, 1].long() - kern[1]).abs().max()),
+                          int((lib[1, :, 0].long() - kern[2]).abs().max()))
+            differing += lib_err != 0
+            ms, lib_ms = _timed_turns(
+                [lambda: SS.shard_epilogue(ok, needs, live, d), library],
+                1 if rehearse else 200, 1 if rehearse else 7, device)
+            plain_ms = _timed(lambda: SS.shard_epilogue_reference(ok, needs, live, d),
+                              1 if rehearse else 20, device)
+            dev_ms = None if rehearse else _device_ms(
+                lambda: SS.shard_epilogue(ok, needs, live, d), 50, "ss_epilogue_kernel")
+            b_ms, b_by = _bound(3.0 * B + 12.0 * d, 6.0 * B)
+            _line("shard_step", shards=d, rows=rows, ms=f"{ms:.5f}",
+                  device_ms=json.dumps(dev_ms), plain_ms=f"{plain_ms:.4f}",
+                  library_ms=f"{lib_ms:.5f}", library_max_abs_err=lib_err,
+                  bound_ms=f"{b_ms:.3g}", bound_by=b_by)
+            if (d, rows) == (4, 2048):
+                entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=lib_ms, device_ms=dev_ms)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    _line("shard_step", layouts=len(SHARD_LAYOUTS), buffers=3 * len(SHARD_LAYOUTS),
+          tolerance=0, differing=differing, max_abs_err=max_err)
+    if differing:
+        _fail("the shard-step epilogue kernel and its plain version disagree")
+    entry["max_abs_err"] = max_err
+    return entry
+
+
+def _mesh_verifier(device, **kw):
+    """A ShardedSecpVerifier over MESH_ENTRIES entries of `device`."""
+    from bitcoinconsensus_tpu_torch.parallel import ShardedSecpVerifier, make_mesh
+
+    return ShardedSecpVerifier(mesh=make_mesh(devices=[str(device)] * MESH_ENTRIES), **kw)
+
+
+def _shard_lane_recorder(verifier):
+    """Wrap a mesh verifier's sharded step so that it keeps the live lanes
+    of each shard of each sharded launch (a clean run's: a re-dispatch
+    would record its launch's again)."""
+    seen = []
+    step = verifier._step
+
+    def keep(*args):
+        seen.append(list(verifier.last_shard_lanes))
+        return step(*args)
+
+    verifier._step = keep
+    return seen
+
+
+def _mesh_phase(items, results, block_run, sent, device, sync, rehearse, path_launches):
+    """`[mesh]`: a ShardedSecpVerifier over 4 entries of the card (one
+    stream each): the main path's inputs through `verify_batch` in index
+    mode, the config-5 block through `connect_block` and the stream's 5
+    batches through `verify_batch_stream`, each with fresh caches and its
+    kernels' launch counts set to 0 just before it and read just after:
+    every verdict equal to the single-device runs', the verify kernel
+    launched once a shard, the epilogue once a sharded dispatch, the
+    checksum kernel never. Then `verify_checks_with_verdict`'s all_ok on a
+    clean and a bad batch; the main path sharded against single in turns
+    (single, mesh, mesh, single; a figure for the record, not a claim); and
+    the one-entry mesh of `make_mesh()` on the card, which dispatches as the
+    base verifier (mesh_dispatches=0, the reference's d < 2 rule). Returns
+    (the epilogue's launches by path, the context of the next phases)."""
+    import torch
+
+    from bitcoinconsensus_tpu_torch.crypto.torch_backend import TorchSecpVerifier
+    from bitcoinconsensus_tpu_torch.models.batch import verify_batch, verify_batch_stream
+    from bitcoinconsensus_tpu_torch.models.sigcache import ScriptExecutionCache, SigCache
+    from bitcoinconsensus_tpu_torch.ops import shard_step as SS
+    from bitcoinconsensus_tpu_torch.ops import verdict_checksum as VC
+    from bitcoinconsensus_tpu_torch.ops import verify_tiles as VT
+    from bitcoinconsensus_tpu_torch.parallel import ShardedSecpVerifier, make_mesh
+
+    t_phase = time.perf_counter()
+    want = _verdicts(results)
+    epilogue_launches = {}
+
+    def counted(path, verifier, fn):
+        sync()
+        VT.verify_tiles.launches = SS.shard_epilogue.launches = 0
+        VC.verdict_checksum.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        dt = time.perf_counter() - t0
+        n = dict(verify=VT.verify_tiles.launches, epilogue=SS.shard_epilogue.launches,
+                 checksum=VC.verdict_checksum.launches)
+        path_launches[path] = n["verify"]
+        epilogue_launches[path] = n["epilogue"]
+        md = int(verifier.stats["mesh_dispatches"])
+        if not rehearse and (md < 1 or n["epilogue"] != md
+                             or n["verify"] != MESH_ENTRIES * md or n["checksum"]
+                             or verifier.stats["mesh_unsharded"]):
+            _fail(f"[mesh] {path}: the sharded dispatches did not launch the verify "
+                  f"kernel once a shard and the epilogue once each: {n}, "
+                  f"mesh_dispatches={md}")
+        return out, n, dt
+
+    def line(path, verifier, n, dt, lanes, differing, **extra):
+        st = verifier.stats
+        _line("mesh", path=path, entries=MESH_ENTRIES, device=str(device),
+              checks=int(st["lanes"]), padded_lanes=int(st["padded_lanes"]),
+              dispatches=int(st["dispatches"]), mesh_dispatches=int(st["mesh_dispatches"]),
+              shard_lanes=json.dumps(lanes), verify_launches=n["verify"],
+              epilogue_launches=n["epilogue"], checksum_launches=n["checksum"],
+              kernel_ms=f"{st['kernel_ms']:.3f}", s=f"{dt:.4f}", tolerance=0,
+              differing=differing, **extra)
+
+    mv = _mesh_verifier(device)
+    lanes = _shard_lane_recorder(mv)
+    res, n, dt = counted("mesh_main_path", mv, lambda: verify_batch(
+        items, verifier=mv, sig_cache=SigCache(), script_cache=ScriptExecutionCache()))
+    diff = sum(a != b for a, b in zip(_verdicts(res), want, strict=True))
+    line("main_path", mv, n, dt, lanes, diff, inputs=len(items))
+    if diff:
+        _fail("[mesh] main_path: a verdict differs from the single-device verifier's")
+
+    connect, block_want, block_cfg = block_run[:3]
+    bv = _mesh_verifier(device, min_batch=block_cfg["min_batch"], chunk=block_cfg["chunk"])
+    lanes = _shard_lane_recorder(bv)
+    got, n, dt = counted("mesh_block", bv, lambda: connect(bv))
+    line("block", bv, n, dt, lanes, int(got != block_want), ok=got[0])
+    if got != block_want:
+        _fail("[mesh] block: the result differs from the native block's")
+
+    size = len(items) // 5
+    batches = [items[k * size:(k + 1) * size] for k in range(5)]
+    sv = _mesh_verifier(device)
+    lanes = _shard_lane_recorder(sv)
+    outs, n, dt = counted("mesh_stream", sv, lambda: list(verify_batch_stream(
+        iter(batches), verifier=sv, sig_cache=SigCache(),
+        script_cache=ScriptExecutionCache(), depth=2)))
+    diff = sum(_verdicts(o) != want[k * size:(k + 1) * size] for k, o in enumerate(outs))
+    line("stream", sv, n, dt, lanes, diff, batches=len(batches), depth=2)
+    if diff or len(outs) != len(batches):
+        _fail("[mesh] stream: a batch differs from verify_batch's")
+
+    checks = sent[:2000]
+    single = TorchSecpVerifier(device=device).verify_checks(checks)
+    clean = [c for c, w in zip(checks, single) if w]
+    bad = clean + [next(c for c, w in zip(checks, single) if not w)]
+    vv = _mesh_verifier(device)
+    r_clean, ok_clean = vv.verify_checks_with_verdict(clean)
+    r_bad, ok_bad = vv.verify_checks_with_verdict(bad)
+    _line("mesh", path="verify_checks_with_verdict", clean=len(clean), bad=len(bad),
+          clean_all_ok=ok_clean, bad_all_ok=ok_bad,
+          clean_results_all=bool(r_clean.all()), bad_rejected=int((~r_bad).sum()))
+    if not ok_clean or ok_bad or not r_clean.all() or int((~r_bad).sum()) != 1:
+        _fail("[mesh] verify_checks_with_verdict: the block verdict is wrong")
+
+    turns = {"single": [], "mesh": []}
+    for kind in ("single", "mesh", "mesh", "single")[:2 if rehearse else 4]:
+        v = TorchSecpVerifier(device=device) if kind == "single" else _mesh_verifier(device)
+        sync()
+        t0 = time.perf_counter()
+        res_t = verify_batch(items, verifier=v, sig_cache=SigCache(),
+                             script_cache=ScriptExecutionCache())
+        sync()
+        turns[kind].append(time.perf_counter() - t0)
+        if _verdicts(res_t) != want:
+            _fail(f"[mesh] turns: the {kind} run's verdicts changed")
+    _line("mesh_turns", order="single,mesh,mesh,single", inputs=len(items),
+          single_s=json.dumps([round(t, 4) for t in turns["single"]]),
+          mesh_s=json.dumps([round(t, 4) for t in turns["mesh"]]),
+          mesh_over_single=f"{sum(turns['mesh']) / sum(turns['single']):.3f}",
+          note="a_figure_for_the_record_not_a_claim")
+
+    one = ShardedSecpVerifier(mesh=make_mesh(devices=[str(device)]) if rehearse
+                              else make_mesh())
+    res1 = verify_batch(items, verifier=one, sig_cache=SigCache(),
+                        script_cache=ScriptExecutionCache())
+    diff = sum(a != b for a, b in zip(_verdicts(res1), want, strict=True))
+    _line("mesh", path="one_entry", entries=one.mesh.size,
+          mesh_dispatches=int(one.stats["mesh_dispatches"]),
+          dispatches=int(one.stats["dispatches"]), differing=diff,
+          note="one_entry_dispatches_as_the_base_verifier_not_a_shard_run")
+    if diff or one.stats["mesh_dispatches"] or one.mesh.size != (
+            1 if rehearse else torch.cuda.device_count()):
+        _fail("[mesh] one_entry: the one-entry mesh differs from the base verifier")
+    _line("mesh_time", seconds=f"{time.perf_counter() - t_phase:.2f}")
+    return epilogue_launches, dict(checks=checks, single=single)
+
+
+def _mesh_faults_phase(ctx, device, rehearse) -> None:
+    """`[mesh_faults]`: the fault harness on the 4-entry card mesh over the
+    main path's first 2,000 checks, one line a case (`held`: the verdicts
+    equal the clean run's, or the case raised what it must; `wrong_accepts`
+    must be 0): a flip at shard 2, convicted by that shard's checksum, the
+    other shards' verdicts standing; a device loss at shard 1 with
+    evict_after=1, which evicts, rebuilds over 3 entries and answers the lost
+    lanes again, then a batch over the 3 shards; re-promotion after the clean
+    dispatches the ladder asks for; a failed probe that keeps the entry out;
+    a straggle past BITCOINCONSENSUS_TPU_SHARD_DEADLINE_S on an armed width;
+    and every shard failing, which must raise DispatchFailed after the retry
+    budget."""
+    import numpy as np
+
+    from bitcoinconsensus_tpu_torch.parallel import mesh as M
+    from bitcoinconsensus_tpu_torch.resilience import FaultPlan, FaultSpec, inject
+    from bitcoinconsensus_tpu_torch.resilience.degrade import DispatchFailed
+
+    checks, want = ctx["checks"], np.asarray(ctx["single"], dtype=bool)
+    bad_cases = []
+
+    def counts():
+        return ({lvl: M._MESH_REDISPATCH_LANES.value(level=lvl) for lvl in ("mesh", "device")},
+                {k: v for k, v in _metric_samples("consensus_mesh_shard_failures_total")},
+                {k: v for k, v in _metric_samples("consensus_mesh_repromotions_total")})
+
+    def run(case, v, plan=None, expect_raise=False, **extra):
+        before = counts()
+        raised = None
+        res = None
+        try:
+            if plan is None:
+                res = v.verify_checks(checks)
+            else:
+                with inject(FaultPlan(plan)):
+                    res = v.verify_checks(checks)
+        except DispatchFailed as e:
+            raised = e
+        after = counts()
+        wrong = 0 if res is None else int((res & ~want).sum())
+        held = (raised is not None) if expect_raise else (
+            res is not None and bool(np.array_equal(res, want)))
+        redisp = {k: int(after[0][k] - before[0][k]) for k in after[0]}
+        fails = {f"{dict(k)['device']}:{dict(k)['reason']}": int(v_ - before[1].get(k, 0))
+                 for k, v_ in after[1].items() if v_ - before[1].get(k, 0)}
+        repro = int(sum(after[2].values()) - sum(before[2].values()))
+        _line("mesh_faults", case=case, held=held, wrong_accepts=wrong,
+              evicted=json.dumps(list(v._shard_ladder._evicted)),
+              devices_after=v.mesh.size, redispatch_lanes=json.dumps(redisp),
+              shard_failures=json.dumps(fails), repromotions=repro,
+              raised=type(raised).__name__ if raised else None,
+              cause=getattr(getattr(raised, "__cause__", None), "reason", None), **extra)
+        if not held or wrong:
+            bad_cases.append(case)
+        return res, redisp, fails
+
+    v = _mesh_verifier(device)
+    run("clean", v)
+    _res, redisp, fails = run("flip_shard_2", v, [FaultSpec("mesh.shard.2", "flip")])
+    if set(fails) != {"2:checksum"} or not redisp["mesh"]:
+        bad_cases.append("flip_shard_2 (convicted elsewhere or not re-dispatched)")
+
+    v = _mesh_verifier(device, evict_after=1)
+    run("device_loss_shard_1", v, [FaultSpec("mesh.shard.1", "device-loss")])
+    # Two clean dispatches nominate the evicted entry for its probe: the
+    # first over the 3 survivors, the second ends in the probe.
+    v._shard_ladder.reprobe_after = 2
+    run("after_eviction", v)
+    if v.mesh.size != MESH_ENTRIES - 1 or len(v.last_shard_lanes) != MESH_ENTRIES - 1:
+        bad_cases.append("after_eviction (no eviction or no 3-shard batch)")
+    run("repromoted_after_probe", v)
+    if v.mesh.size != MESH_ENTRIES:
+        bad_cases.append("repromoted_after_probe (the entry stayed out)")
+
+    v = _mesh_verifier(device, evict_after=1)
+    run("device_loss_shard_3", v, [FaultSpec("mesh.shard.3", "device-loss")])
+    v._shard_ladder.reprobe_after = 1
+    run("failed_probe", v, [FaultSpec("mesh.probe", "raise")])
+    if v.mesh.size != MESH_ENTRIES - 1:
+        bad_cases.append("failed_probe (the entry came back)")
+
+    v = _mesh_verifier(device)
+    run("straggle_unarmed_width", v, [FaultSpec("mesh.shard.0", "straggle", value=9e9)])
+    _res, _r, fails = run("straggle_armed", v,
+                          [FaultSpec("mesh.shard.0", "straggle", value=9e9)],
+                          deadline_s=v._shard_deadline_s)
+    if set(fails) != {"0:deadline"}:
+        bad_cases.append("straggle_armed (not convicted on its deadline)")
+
+    v = _mesh_verifier(device)
+    run("all_shards_fail", v, [FaultSpec(f"mesh.shard.{s}", "flip", count=64)
+                               for s in range(MESH_ENTRIES)], expect_raise=True)
+    if bad_cases:
+        _fail(f"[mesh_faults]: {bad_cases}")
+
+
+def _metric_samples(name):
+    """(labels as a sorted tuple, value) of one metric of the port's registry."""
+    from bitcoinconsensus_tpu_torch.obs import get_registry
+
+    m = get_registry().snapshot().get(name) or {"samples": []}
+    return [(tuple(sorted(s["labels"].items())), s["value"]) for s in m["samples"]]
+
+
+def _mesh_xprof_phase(ctx, device, sync, rehearse, out_dir) -> None:
+    """`[xprof]` of one warmed sharded dispatch (`verify_checks` of the
+    2,000 checks on the 4-entry card mesh): `ss_epilogue_kernel` charged to
+    `shard_step`, `vt_verify_kernel` to `verify_tiles`, no kernel of the port
+    unattributed; the busy share and the idle gaps."""
+    from bitcoinconsensus_tpu_torch.obs import xprof
+
+    if rehearse:
+        _line("xprof", path="mesh", skipped="a capture measures the card; none in a rehearsal")
+        return
+    v = _mesh_verifier(device)
+    checks = ctx["checks"]
+
+    def run():
+        v.verify_checks(checks)
+
+    run()
+    sync()
+    rep = xprof.capture_report(run, log_dir=os.path.join(HERE, "build", "xprof", "mesh"))
+    xprof.write_report(rep, os.path.join(out_dir, "xprof_mesh.json"))
+    sym, regions = rep["symbols"], rep["regions"]
+    port_unattr = {k: v_ for k, v_ in rep["unattributed_symbols"].items()
+                   if k.startswith(("vt_", "vc_", "sh_", "ss_", "tk_"))}
+    _line("xprof", path="mesh", wall_s=f"{rep['walls_s'][0]:.4f}",
+          regions_ms=json.dumps({k: round(r["seconds"] * 1e3, 5) for k, r in regions.items()}),
+          symbols_ms=json.dumps({k: round(t * 1e3, 5) for k, t in sym.items()}),
+          port_unattributed_ms=f"{sum(port_unattr.values()) * 1e3:.5f}",
+          device_busy_share=f"{rep['device_busy_share']:.5f}",
+          window_ms=f"{rep['window_s'] * 1e3:.3f}", kernels=rep["kernels"])
+    for g in rep["gaps"]:
+        _line("xprof", path="mesh", gap_ms=f"{g['length_s'] * 1e3:.3f}",
+              at_ms=f"{g['start_s'] * 1e3:.3f}", host_span=g["host_span"])
+    if (not sym.get("ss_epilogue_kernel") or not sym.get("vt_verify_kernel") or port_unattr
+            or regions.get("verify_tiles", {}).get("seconds") != sym["vt_verify_kernel"]
+            or regions.get("shard_step", {}).get("seconds", 0.0) < sym["ss_epilogue_kernel"]
+            or not 0.0 < rep["device_busy_share"] <= 1.0):
+        _fail("[xprof] mesh: the capture did not charge the epilogue to shard_step and "
+              "the verify kernel to verify_tiles")
+
+
 SHA_WIDTHS = (1, 2048, 8192, 262144)
 # 32-bit instructions of one SHA-256 compression at the fewest the card
 # needs, as csrc/sha256.cu's note counts them: 48 schedule words of 10 (two
@@ -1813,12 +2215,13 @@ def main() -> int:
         from concurrent.futures import ThreadPoolExecutor
 
         sources = ("verify_tiles", "verdict_checksum", "sha256", "toy_kernels",
-                   _build.HOST_CORE, _build.VT_HOST)
+                   "shard_step", _build.HOST_CORE, _build.VT_HOST)
         with ThreadPoolExecutor(len(sources)) as pool:
             builds = list(pool.map(_build.build, sources))
         for name, built in zip(sources, builds):
             what = dict(kernel=name) if name in (
-                "verify_tiles", "verdict_checksum", "sha256", "toy_kernels") else dict(name=name)
+                "verify_tiles", "verdict_checksum", "sha256", "toy_kernels",
+                "shard_step") else dict(name=name)
             _line("build", **what, seconds=f"{built.seconds:.2f}",
                   library=os.path.relpath(built.path, HERE))
             for ln in built.log.splitlines():
@@ -1835,6 +2238,9 @@ def main() -> int:
                     "sh_merkle_level_kernel"):
             _line("ptxas", kernel=sym, **_ptxas(builds[2].log, sym),
                   build_s=f"{builds[2].seconds:.2f}")
+        _line("ptxas", kernel="ss_epilogue_kernel",
+              **_ptxas(builds[4].log, "ss_epilogue_kernel"),
+              build_s=f"{builds[4].seconds:.2f}")
 
     def sync():
         if device.type == "cuda":
@@ -2290,6 +2696,20 @@ def main() -> int:
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms, "device_ms": dev_ms})
     _stats_phase(rehearse, out_dir)
+
+    # -- the mesh, after every phase above, so that those run in the process
+    # state they had before this slice -------------------------------------------
+    ss_entry = _shard_step_phase(device, np.random.default_rng([seed, 13]), rehearse)
+    ss_launches, mesh_ctx = _mesh_phase(items, results, block_run, py_sent, device, sync,
+                                        rehearse, path_launches)
+    _mesh_faults_phase(mesh_ctx, device, rehearse)
+    _mesh_xprof_phase(mesh_ctx, device, sync, rehearse, out_dir)
+    kernels.insert(2, {
+        "name": "shard_epilogue", "route": "cuda", "source": MESH_SOURCE,
+        "replaces": "bitcoinconsensus_tpu/parallel/mesh.py:201 (make_sharded_step's "
+                    "local_step, an XLA program of the reference, not a pallas_call)",
+        "launches": ss_launches["mesh_main_path"], "launches_by_path": ss_launches,
+        **ss_entry})
     _line("total", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -730,3 +730,90 @@ def test_connect_block_with_device_sha_on_cuda_equals_the_native_block(corrupt):
 
     assert tup(dev) == tup(nat) and nat.ok == (corrupt is None)
     assert len(plain) == len(view)
+
+
+# -- the mesh on one card ---------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,rows", [(1, 1), (2, 4096), (4, 2048), (8, 1024), (4, 16),
+                                    (3, 5), (2, 1025)])
+def test_shard_epilogue_kernel_matches_plain_version(d, rows):
+    from bitcoinconsensus_tpu_torch.ops import shard_step as SS
+
+    _need_cuda()
+    rng = np.random.default_rng([d, rows])
+    bufs = [rng.integers(0, 2, (3, d * rows)).astype(bool), np.ones((3, d * rows), bool),
+            np.zeros((3, d * rows), bool)]
+    for ok, needs, live in bufs:
+        dev = [torch.from_numpy(x.copy()).cuda() for x in (ok, needs, live)]
+        before = SS.shard_epilogue.launches
+        got = SS.shard_epilogue(*dev, d)
+        assert SS.shard_epilogue.launches == before + 1
+        assert got.is_cuda and got.dtype == torch.int32 and tuple(got.shape) == (3, d)
+        assert got.cpu().tolist() == SS.shard_epilogue_reference(*dev, d).cpu().tolist()
+
+
+@pytest.mark.gpu
+def test_shard_epilogue_launcher_refuses_other_launches():
+    from bitcoinconsensus_tpu_torch.ops import shard_step as SS
+
+    _need_cuda()
+    fn = launch.bind("shard_step", "ss_shard_epilogue")
+    t = torch.zeros(64, dtype=torch.bool, device="cuda")
+    out = torch.empty(3, 2, dtype=torch.int32, device="cuda")
+    for rows, n, grid, threads in ((32, 2, 1, 1024), (32, 2, 2, 512), (32, 0, 0, 1024),
+                                   (SS.MAX_LANES + 1, 1, 1, 1024)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            launch.call(fn, 0, t.data_ptr(), t.data_ptr(), t.data_ptr(), out.data_ptr(),
+                        rows, n, grid, threads)
+
+
+def _mesh4(**kw):
+    from bitcoinconsensus_tpu_torch.parallel import ShardedSecpVerifier, make_mesh
+
+    return ShardedSecpVerifier(mesh=make_mesh(devices=["cuda:0"] * 4), **kw)
+
+
+@pytest.mark.gpu
+def test_cuda_mesh_equals_the_single_device_verifier():
+    """A 4-entry mesh over cuda:0: each dispatch launches the verify kernel
+    once a shard and the epilogue once, no checksum kernel; verdicts, the
+    block verdict and `verify_batch` equal the single-device verifier's."""
+    from bitcoinconsensus_tpu_torch.ops import shard_step as SS
+
+    _need_cuda()
+    checks = [_collision()] + _checks(70)
+    pk, sig, msg = checks[1].data
+    checks.append(SigCheck("ecdsa", (pk, sig, hashlib.sha256(b"wrong").digest())))
+    want = TorchSecpVerifier().verify_checks(checks)
+    v = _mesh4()
+    vt0, ss0, vc0 = (VT.verify_tiles.launches, SS.shard_epilogue.launches,
+                     VC.verdict_checksum.launches)
+    got, verdict = v.verify_checks_with_verdict(checks)
+    assert np.array_equal(got, want) and not verdict
+    assert v.stats["mesh_dispatches"] == 1 and v.stats["fixups"] == 1
+    assert (VT.verify_tiles.launches - vt0, SS.shard_epilogue.launches - ss0,
+            VC.verdict_checksum.launches - vc0) == (4, 1, 0)
+    clean = [c for c, w in zip(checks, want) if w]
+    got2, verdict2 = v.verify_checks_with_verdict(clean)
+    assert got2.all() and verdict2 and v.in_flight == 0
+    items, _bad = B.mixed_items(120, seed=41, corrupt_rate=0.05)
+    runs = [[(r.ok, r.error, r.script_error) for r in verify_batch(
+        items, verifier=verifier, sig_cache=SigCache(), script_cache=ScriptExecutionCache())]
+        for verifier in (TorchSecpVerifier(), _mesh4())]
+    assert runs[0] == runs[1]
+
+
+@pytest.mark.gpu
+def test_cuda_mesh_device_loss_evicts_and_continues():
+    _need_cuda()
+    checks = _checks(60)
+    want = TorchSecpVerifier().verify_checks(checks)
+    v = _mesh4(evict_after=1)
+    with F.inject(F.FaultPlan([F.FaultSpec("mesh.shard.1", "device-loss")])) as inj:
+        got, verdict = v.verify_checks_with_verdict(checks)
+    assert inj.total_fired() == 1 and np.array_equal(got, want) and verdict
+    assert v.mesh.size == 3 and "1" not in v.mesh.ids
+    got2, verdict2 = v.verify_checks_with_verdict(checks)
+    assert np.array_equal(got2, want) and verdict2 and len(v.last_shard_lanes) == 3

@@ -112,7 +112,9 @@ def test_sync_rule_allows_only_the_named_seams(tmp_path):
     assert _found(found) == {("sync", 15), ("sync", 17)}
     assert set(hl.SYNC_ALLOWED_FUNCS) == {
         "TorchSecpVerifier._materialize_guarded", "settle_array",
-        "TorchSecpVerifier._prepare_ticket", "TorchSecpVerifier.__init__"}
+        "TorchSecpVerifier._prepare_ticket", "TorchSecpVerifier.__init__",
+        "TorchSecpVerifier._guard_launch", "make_mesh",
+        "ShardedSecpVerifier._prepare_ticket", "_ShardedLaunch.settle"}
 
 
 def test_sync_rule_covers_the_inflight_queue(tmp_path):

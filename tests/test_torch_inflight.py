@@ -320,3 +320,56 @@ def test_stream_with_tickets_settled_by_backpressure(monkeypatch):
                                    script_cache=ScriptExecutionCache(), depth=2))
     assert got == want and v.in_flight == 0
     assert v.stats["backpressure"] >= 1 and v.stats["tickets"] >= 3
+
+
+# -- the verdict accounting hook and drain -------------------------------------------------
+
+
+class _AllOkBackend(_Backend):
+    """A materialize that also returns the sharded step's `all_ok`."""
+
+    def materialize(self, ticket):
+        return super().materialize(ticket) + (True,)
+
+
+def _hooked_queue(backend, seen):
+    return I.InflightQueue(DispatchResilience(), "test.inflight", launch=backend.launch,
+                           materialize=backend.materialize, backoff_s=0.0,
+                           on_device=lambda t, ok, needs, all_ok: seen.append(
+                               (t.n, all_ok, len(ok), len(needs))))
+
+
+def test_on_device_hook_runs_once_per_clean_settle():
+    seen = []
+    be = _AllOkBackend(settle_fails=1)
+    q = _hooked_queue(be, seen)
+    t = q.dispatch(("a",), 3)
+    ok, needs = q.settle(t)
+    q.settle(t)  # idempotent: no second call
+    assert seen == [(3, True, 3, 3)] and be.launches == [3, 3]
+    assert len(ok) == len(needs) == 3
+    seen2 = []
+    q2 = _hooked_queue(_Backend(), seen2)  # a two-value materialize: all_ok None
+    q2.settle(q2.dispatch(("a",), 4))
+    assert seen2 == [(4, None, 4, 4)]
+    seen3 = []
+    q3 = _hooked_queue(_Backend(settle_fails=99), seen3)
+    with pytest.raises(DispatchFailed):
+        q3.settle(q3.dispatch(("a",), 2))
+    assert seen3 == []  # a ticket that never settles clean is never counted
+
+
+def test_drain_settles_every_ticket_in_flight():
+    be = _Backend()
+    q = _mk_queue(be)
+    tickets = [q.dispatch(("a",), n) for n in (3, 4, 5)]
+    q.drain()
+    assert q.depth == 0 and all(t.settled for t in tickets) and be.settles == [3, 4, 5]
+    q.drain()  # nothing left: a no-op
+    bad = _Backend(settle_fails=99)
+    qb = _mk_queue(bad)
+    t = qb.dispatch(("a",), 2)
+    qb.drain()  # keeps the failure on the ticket for its owner
+    assert qb.depth == 0 and t.settled
+    with pytest.raises(DispatchFailed):
+        qb.settle(t)

@@ -394,8 +394,11 @@ def test_stats_gate_passes_on_the_cpu(monkeypatch, capsys):
     needs the card."""
     from bitcoinconsensus_tpu_torch.crypto import torch_backend as TB
     from bitcoinconsensus_tpu_torch.obs import stats
+    from bitcoinconsensus_tpu_torch.parallel import mesh as TM
 
-    monkeypatch.setattr(TB, "verify_tiles", _PlainRows())
+    plain = _PlainRows()
+    monkeypatch.setattr(TB, "verify_tiles", plain)
+    monkeypatch.setattr(TM, "verify_tiles", plain)
     monkeypatch.setenv("BITCOINCONSENSUS_TPU_FLIGHT_DIR",
                        os.path.join(os.path.dirname(os.path.dirname(
                            os.path.abspath(__file__))), "build", "flight"))
@@ -405,7 +408,8 @@ def test_stats_gate_passes_on_the_cpu(monkeypatch, capsys):
     cpu, cuda = stats.required_metrics("cpu"), stats.required_metrics("cuda")
     assert set(cuda) - set(cpu) == set(stats.REQUIRED_METRICS["device-truth"])
     assert "consensus_resilience_level" not in cuda
-    assert not [n for n in cuda if n.startswith(("consensus_mesh_", "consensus_serving_",
+    assert set(stats.REQUIRED_METRICS["mesh"]) <= set(cpu)
+    assert not [n for n in cuda if n.startswith(("consensus_serving_",
                                                  "consensus_ingress_", "consensus_cell_",
                                                  "consensus_sigstore_",
                                                  "consensus_gauntlet_"))]
@@ -469,7 +473,7 @@ def test_stats_gate_requires_the_reference_metrics_of_the_ported_layers():
     import bitcoinconsensus_tpu_torch.models.validate  # noqa: F401 (registers)
     import bitcoinconsensus_tpu.models.validate  # noqa: F401
 
-    later = ("consensus_mesh_", "consensus_serving_", "consensus_ingress_",
+    later = ("consensus_serving_", "consensus_ingress_",
              "consensus_sigstore_", "consensus_cell_", "consensus_gauntlet_")
     ref = [n for n in _reference_required()
            if not n.startswith(later) and n != "consensus_resilience_level"]

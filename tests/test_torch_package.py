@@ -76,6 +76,13 @@ def test_walk_covers_the_obs_modules_and_regions():
         assert os.path.join("bitcoinconsensus_tpu_torch", mod) in rel
 
 
+def test_walk_covers_the_parallel_modules():
+    rel = {os.path.relpath(p, REPO) for p in _sources()}
+    for mod in ("parallel/__init__.py", "parallel/mesh.py", "ops/shard_step.py"):
+        assert os.path.join("bitcoinconsensus_tpu_torch", mod) in rel
+    assert "parallel" in bitcoinconsensus_tpu_torch.__all__
+
+
 def test_obs_exports_the_reference_names():
     from bitcoinconsensus_tpu import obs as ref
     from bitcoinconsensus_tpu_torch import obs as port

@@ -602,3 +602,78 @@ def test_fault_plan_rng_matches_over_a_random_plan():
                           for _ in range(10)]
     for p, r in zip(outs["port"], outs["ref"], strict=True):
         assert p.dtype == r.dtype and np.array_equal(p, r, equal_nan=p.dtype.kind == "f")
+
+
+# -- the verdict accounting seam the mesh overrides, on the single-device verifier -----
+
+
+def _collision(flip):
+    """The crafted collision lane (P = G, t = 1), its parity flipped or not:
+    the kernel defers it, the host fixup resolves it (True unflipped)."""
+    qx, qy = B._g_mul(2)
+    return SigCheck("tweak", (qx.to_bytes(32, "big"), (qy & 1) ^ flip,
+                              JH.G_X.to_bytes(32, "big"), (1).to_bytes(32, "big")))
+
+
+@pytest.mark.parametrize("flip", [0, 1])
+def test_fixup_failed_is_set_where_the_verifier_fixup_rejects(flip):
+    v = _verifier()
+    assert v._fixup_failed is False
+    out = v.verify_checks([_collision(flip)] + CHECKS[:2])
+    assert v.stats["fixups"] == 1
+    assert out.tolist() == [flip == 0] + ORACLE[:2].tolist()
+    assert v._fixup_failed is (flip == 1)
+
+
+@pytest.mark.parametrize("reject", [False, True])
+def test_fixup_failed_is_set_where_the_index_driver_fixup_rejects(reject):
+    """`_settle_uniq`, the index-mode drivers' settle, sets the flag exactly
+    where a deferred lane resolves False on the host."""
+
+    class Session:
+        def uniq_host_verify(self, i):
+            return not (reject and i == 1)
+
+        def publish_uniq(self, grow, vals):
+            self.published = vals.tolist()
+
+    class Verifier:
+        def __init__(self):
+            self.stats = {"fixup_s": 0.0, "fixups": 0}
+            self._fixup_failed = False
+
+        def sync_lanes(self, pending, n):
+            return np.array([True, False, False]), np.array([False, True, True])
+
+    sess, ver, state = Session(), Verifier(), TBATCH._UniqState()
+    state.val = np.zeros(3, dtype=bool)
+    grow = np.arange(3, dtype=np.int32)
+    keys = [bytes([i]) * 32 for i in range(3)]
+    TBATCH._settle_uniq(sess, ver, SigCache(), state, (grow, keys, [(None, grow)]))
+    assert ver._fixup_failed is reject and ver.stats["fixups"] == 2
+    assert sess.published == [1, int(not reject), 1]
+
+
+def test_verifier_notes_each_clean_dispatch_once(monkeypatch):
+    """The in-flight queue's success hook reaches `_note_device_verdict` once
+    per dispatch, after its retry, never per attempt; the settle seam
+    returns all_ok None off the mesh; the stats keys are the ones the
+    verifier always kept."""
+    v = _verifier()
+    noted = []
+    monkeypatch.setattr(v, "_note_device_verdict",
+                        lambda all_ok, ok, needs, count: noted.append(
+                            (all_ok, count, len(ok), len(needs))))
+    with F.inject(F.FaultPlan([F.FaultSpec("torch_backend.verdict", "flip")]), seed=3):
+        out = v.verify_checks(CHECKS)
+    assert np.array_equal(out, ORACLE) and v.stats["retries"] == 1
+    padded = v.pad(len(CHECKS))
+    assert noted == [(None, len(CHECKS), padded, padded)]
+    v2 = _verifier()
+    handle = v2.verify_checks_begin(CHECKS)
+    ticket = handle[1][0][2]
+    ok, needs, all_ok = v2._materialize_guarded(ticket)
+    assert all_ok is None and len(ok) == len(needs) == padded
+    assert np.array_equal(v2.verify_checks_finish(handle), ORACLE)
+    assert sorted(v2.stats) == ["dispatches", "fixup_s", "fixups", "lane_prep_s", "lanes",
+                                "padded_lanes", "sentinel_lanes", "tickets"]
