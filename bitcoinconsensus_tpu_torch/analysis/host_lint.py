@@ -12,15 +12,20 @@ Those modules must be bit-exact, replayable functions of their inputs:
 - no `random` / `secrets` (verdicts must not depend on entropy),
 - no reading clocks (`time.time`, `datetime.now`, `time.perf_counter`, ...).
 
-The clock rule also runs alone over `crypto/`, `parallel/` and
-`resilience/`. The sanctioned clock readers are `obs/spans.py` (spans and
+The clock rule also runs alone over `crypto/`, `parallel/`,
+`resilience/`, `serving/` and `cell/` (host-side policy with wall-clock
+deadlines: floats are fine there, reading a clock outside `obs.monotonic`
+is not; sleeping is not reading a clock). The sanctioned clock readers are `obs/spans.py` (spans and
 `monotonic`) and `utils/profiling.py` (`Phases`, `accumulate`,
 `monotonic`), which times through it: ad-hoc `time.perf_counter()` pairs
 must not drift in beside them.
 
 The `sync` rule runs over `crypto/torch_backend.py`,
-`resilience/inflight.py` and `parallel/mesh.py`, the counterparts of the
-reference's `jax_backend.py`, `inflight.py` and `mesh.py`: forcing a device tensor to the host
+`resilience/inflight.py`, `parallel/mesh.py`, `serving/ingress.py` and
+`models/sigstore.py`, the counterparts of the reference's
+`jax_backend.py`, `inflight.py`, `mesh.py`, `ingress.py` and `sigstore.py`
+(the network edge and the persistent store sit upstream of the dispatch
+path and may never force a device buffer to the host): forcing a device tensor to the host
 (`.cpu()`, `.item()`, `.tolist()`, `.numpy()`, `np.asarray`, `np.array`) or
 waiting for the device (`torch.cuda.synchronize`, an event's
 `.synchronize()`) is a hidden synchronisation point that serialises the
@@ -46,8 +51,7 @@ name stack, one launch being one region, so the port's rule reads the
 sources.
 
 Rules of the reference that wait: the `precision` and `pallas` rules have no
-torch or CUDA counterpart in the port today; the reference's `sync` targets
-`ingress.py` and `sigstore.py` wait for their modules.
+torch or CUDA counterpart in the port today.
 
 Pure-AST checks (and a regex scan of the `.cu`): no imports of the scanned
 modules, so a syntax-valid file is lintable even when its dependencies are
@@ -240,17 +244,22 @@ def _pkg(repo_root: str) -> str:
 
 def lint_consensus_host(repo_root: str) -> List[LintFinding]:
     """Full rules over core/ + models/; the clock rule alone over crypto/,
-    parallel/ and resilience/; the sync rule over the verifier's dispatch
-    path, the mesh and the in-flight queue."""
+    parallel/, resilience/, serving/ and cell/; the sync rule over the
+    verifier's dispatch path, the mesh, the in-flight queue, the network
+    edge and the persistent store."""
     pkg = _pkg(repo_root)
     findings = lint_paths([os.path.join(pkg, "core"),
                            os.path.join(pkg, "models")])
     findings += lint_paths([os.path.join(pkg, "crypto"),
                             os.path.join(pkg, "parallel"),
-                            os.path.join(pkg, "resilience")], rules=TIMING_RULES)
+                            os.path.join(pkg, "resilience"),
+                            os.path.join(pkg, "serving"),
+                            os.path.join(pkg, "cell")], rules=TIMING_RULES)
     findings += lint_paths([os.path.join(pkg, "crypto", "torch_backend.py"),
                             os.path.join(pkg, "parallel", "mesh.py"),
-                            os.path.join(pkg, "resilience", "inflight.py")],
+                            os.path.join(pkg, "resilience", "inflight.py"),
+                            os.path.join(pkg, "serving", "ingress.py"),
+                            os.path.join(pkg, "models", "sigstore.py")],
                            rules=SYNC_RULES)
     return findings
 

@@ -164,9 +164,10 @@ def _host() -> int:
     from . import host_lint
 
     repo = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    print("== host lint (core/, models/; clock rule over crypto/, parallel/ "
-          "and resilience/; sync rule over crypto/torch_backend.py, "
-          "parallel/mesh.py and resilience/inflight.py) ==")
+    print("== host lint (core/, models/; clock rule over crypto/, parallel/, "
+          "resilience/, serving/ and cell/; sync rule over "
+          "crypto/torch_backend.py, parallel/mesh.py, resilience/inflight.py, "
+          "serving/ingress.py and models/sigstore.py) ==")
     findings = host_lint.lint_consensus_host(repo)
     print("\n== scalar-recoder coverage (ops/, crypto/glv.py, "
           "csrc/verify_tiles.cu) ==")

@@ -87,6 +87,11 @@ class Error(enum.IntEnum):
     ERR_INVALID_FLAGS = 5
     # Script-level failure (the Rust crate's ERR_SCRIPT, lib.rs:121).
     ERR_SCRIPT = 6
+    # Serving-layer extension (bitcoinconsensus_tpu_torch.serving): admission
+    # control shed the request before any consensus evaluation ran. A
+    # fail-closed reject — the caller may retry with backoff; the request
+    # was never partially evaluated. Not part of the reference ABI.
+    ERR_OVERLOADED = 7
 
 
 class ConsensusError(Exception):

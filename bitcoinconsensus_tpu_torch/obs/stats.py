@@ -10,9 +10,15 @@ The counterpart of the reference's `scripts/consensus_stats.py`. The
 workload (`run_workload`) drives the api (each entry point, and each kind of
 rejection), `verify_batch` in index mode, in the wire driver and on the
 Python engine (a mixed batch with one bad input, then a replay that hits
-both caches), `verify_batch_stream`, `connect_block` on a `NativeCoinsView`
-(a valid block, then its replay, rejected), a dispatch with a fault
-injected (retried clean), the mesh (one sharded dispatch over a 4-entry
+both caches), `verify_batch_stream`, the serving front end (a two-tenant fan-in through
+a `VerifyServer`, then a forced `tenant_full` shed and a draining close),
+the ingress (one socket round trip, a garbage frame, a reaped slow-loris),
+the persistent sigstore (populated through `verify_batch`, reopened, the
+rerun warm; a store whose directory vanishes), a two-stub `ServingCell`
+(a replica killed, evicted, its shards handed off, its tenant rerouted,
+then re-promoted through a passing probe), `connect_block` on a
+`NativeCoinsView` (a valid block, then its replay, rejected), a dispatch
+with a fault injected (retried clean), the mesh (one sharded dispatch over a 4-entry
 mesh on the device, then one injected device loss that evicts an entry with
 `evict_after=1`), the fast scalar-schedule certificates and, on the
 card, a device capture (`obs/xprof.py`); the flight recorder is armed for
@@ -24,12 +30,11 @@ scalar certificates (`chip_smoke.py` runs the gate after its `[xprof]` and
 light are the earlier leg's own.
 
 `REQUIRED_METRICS` keeps the reference's names for the layers the port
-has. The groups the port has not yet, each with the item of the roadmap's
-Queue 1 that brings it:
-- serving, ingress, the persistent sigstore and the cell
-  (`consensus_serving_*`, `consensus_ingress_*`, `consensus_sigstore_*`,
-  `consensus_cell_*`): item 3;
-- the adversarial gauntlet (`consensus_gauntlet_*`): item 4, workloads.
+has. The group the port has not yet: the adversarial gauntlet
+(`consensus_gauntlet_*`), item 4 of the roadmap's Queue 1, workloads.
+As in the reference, `consensus_cell_retried_frames_total` samples an
+explicit zero: a retried frame needs a frame in flight at the instant an
+upstream dies. The cell leg's stub replicas run on the gate's device.
 `consensus_resilience_level` (the ladder's gauge) is left out for good: the
 port has no ladder. As in the reference, `consensus_mesh_repromotions_total`
 is not required: only a re-promotion probe lights it. The device-truth group needs the card: with
@@ -84,6 +89,43 @@ REQUIRED_METRICS: Dict[str, Tuple[str, ...]] = {
         "consensus_mesh_shard_failures_total",
         "consensus_mesh_evictions_total",
         "consensus_mesh_redispatch_lanes_total",
+    ),
+    "serving": (
+        "consensus_serving_admitted_total",
+        "consensus_serving_shed_total",
+        "consensus_serving_queue_depth",
+        "consensus_serving_queue_wait_seconds",
+        "consensus_serving_batch_fill",
+        "consensus_serving_batch_seconds",
+        "consensus_serving_slo_seconds",
+        "consensus_serving_slo_p50_seconds",
+        "consensus_serving_slo_p99_seconds",
+        "consensus_serving_batches_total",
+    ),
+    "ingress": (
+        "consensus_ingress_sessions_total",
+        "consensus_ingress_frames_total",
+        "consensus_ingress_bytes_total",
+        "consensus_ingress_deadline_reaps_total",
+        "consensus_ingress_protocol_errors_total",
+    ),
+    "sigstore": (
+        "consensus_sigstore_hits_total",
+        "consensus_sigstore_misses_total",
+        "consensus_sigstore_tier_entries",
+        "consensus_sigstore_warmup_seconds",
+        "consensus_sigstore_replay_records_total",
+        "consensus_sigstore_appends_total",
+        "consensus_sigstore_shard_moved_total",
+    ),
+    "cell": (
+        "consensus_cell_replicas_healthy",
+        "consensus_cell_evictions_total",
+        "consensus_cell_repromotions_total",
+        "consensus_cell_reroutes_total",
+        "consensus_cell_retried_frames_total",
+        "consensus_cell_handoffs_total",
+        "consensus_cell_handoff_records_total",
     ),
     "block": (
         "consensus_blocks_total",
@@ -228,6 +270,8 @@ def run_workload(device: str = "cuda") -> dict:
     if streamed != [want[:3], want[3:]]:
         raise AssertionError(f"the stream gave {streamed}")
 
+    _serving_legs(items, verifier, sig, script, dev)
+
     # -- block: one valid block on a NativeCoinsView, then its replay ---------
     bview, bfunded = blockgen.make_funded_view(4, height=1, seed="stats-blk")
     good = blockgen.build_spend_tx(bfunded, fee=2000)
@@ -297,6 +341,107 @@ def run_workload(device: str = "cuda") -> dict:
     finally:
         flight.set_enabled(False)
     return out
+
+
+def _serving_legs(items, verifier, sig, script, dev: str) -> None:
+    """The serving, ingress, sigstore and cell legs of the workload, as the
+    reference's gate drives them: `items` are four clean inputs and one
+    bad, `sig` and `script` caches already warm with them."""
+    import shutil
+    import socket
+    import tempfile
+    import threading
+
+    from .. import api
+    from ..cell import ServingCell
+    from ..cell.router import _C_RETRIED
+    from ..models.batch import verify_batch
+    from ..models.sigcache import ScriptExecutionCache
+    from ..models.sigstore import PersistentSigCache
+    from ..serving import IngressClient, IngressServer, VerifyServer
+    from ..serving.ingress import encode_frame
+    from .spans import monotonic
+
+    def server(**kw):
+        return VerifyServer(verifier=verifier, sig_cache=sig, script_cache=script, **kw)
+
+    # -- serving: a coalesced fan-in from two tenants, then a deliberate
+    # overload (tenant_depth=1, no time flush): both admission outcomes and
+    # the shed counter sample --------------------------------------------------
+    with server(max_batch=8, flush_s=0.005, tenant_depth=8) as srv:
+        pend = [srv.submit(it, tenant=f"tenant{i % 2}") for i, it in enumerate(items[:4])]
+        if [p.result(timeout=600).ok for p in pend] != [True] * 4:
+            raise AssertionError("the serving fan-in gave a wrong verdict")
+    srv2 = server(max_batch=64, flush_s=30.0, tenant_depth=1).start()
+    queued = srv2.submit(items[0])
+    _expect(api.Error.ERR_OVERLOADED, srv2.submit, items[1])
+    srv2.close(drain=True)  # the draining close settles the queued request
+    if not queued.result(timeout=600).ok or srv2.pending:
+        raise AssertionError("the draining close left a request unsettled")
+
+    # -- ingress: one socket round trip, a garbage frame, a reaped
+    # slow-loris, against a short-idle listener --------------------------------
+    with server(max_batch=8, flush_s=0.005, tenant_depth=8) as srv3:
+        with IngressServer(srv3, idle_s=0.2) as ing:
+            with IngressClient(port=ing.port, timeout_s=600) as cli:
+                if not cli.verify(items[0]).ok:
+                    raise AssertionError("the socket round trip gave a wrong verdict")
+            with socket.create_connection(("127.0.0.1", ing.port), timeout=30) as s:
+                s.sendall(encode_frame(0x7D, b"junk"))  # an unknown frame type
+                s.recv(64)  # the typed ERR frame, then EOF
+            with socket.create_connection(("127.0.0.1", ing.port), timeout=30) as s:
+                s.sendall(b"\x01\x00\x00\x00\x40")  # a header, then a stall
+                while s.recv(64):  # until the deadline reap closes it
+                    pass
+
+    # -- persistent sigstore: populate through the driver, reopen (replay),
+    # the rerun warm; then a store whose directory vanishes mid-run ----------
+    good = items[:4]
+    with tempfile.TemporaryDirectory(prefix="stats-sigstore-") as sdir:
+        with PersistentSigCache(sdir, hot_entries=64, shards=2,
+                                warmup_min_probes=2) as store:
+            verify_batch(good, verifier=verifier, sig_cache=store,
+                         script_cache=ScriptExecutionCache(cache_label="ss1"))
+        with PersistentSigCache(sdir, hot_entries=64, shards=2,
+                                warmup_min_probes=2) as store2:
+            if not len(store2):
+                raise AssertionError("the reopened store replayed nothing")
+            verify_batch(good, verifier=verifier, sig_cache=store2,
+                         script_cache=ScriptExecutionCache(cache_label="ss2"))
+            if store2.warmup_s is None:
+                raise AssertionError("the rerun over the reopened store was not warm")
+    sdir2 = tempfile.mkdtemp(prefix="stats-shard-moved-")
+    store3 = PersistentSigCache(sdir2, hot_entries=16, shards=2)
+    shutil.rmtree(sdir2)
+    store3.add_key(b"\x07" * 32)  # the lazy shard open finds the directory gone
+    if store3.peek_key(b"\x07" * 32) or len(store3):
+        raise AssertionError("a moved shard kept answering")
+    store3.close()
+
+    # -- the cell: two stub replicas on `dev` behind the router; kill one and
+    # drive eviction, shard handoff, reroute and re-promotion for real --------
+    with tempfile.TemporaryDirectory(prefix="stats-cell-") as root:
+        with ServingCell(n_replicas=2, root_dir=root, stub=True, device=dev,
+                         server_kw=dict(max_batch=8, flush_s=0.005),
+                         evict_after=1, backoff_s=0.02, max_backoff_s=0.05) as cell:
+            with IngressClient(port=cell.port, timeout_s=600) as cli:
+                if not cli.verify(items[0], tenant="cell-t0").ok:
+                    raise AssertionError("the cell gave a wrong verdict")
+                victim = cell.router._home.lookup("cell-t0")
+                cell.replicas[victim].kill()
+                cell.tick()  # dead: evicted, its shards handed off
+                if victim in cell.healthy_names():
+                    raise AssertionError("the killed replica was not evicted")
+                if not cli.verify(items[0], tenant="cell-t0").ok:  # rerouted
+                    raise AssertionError("the rerouted verdict is wrong")
+                deadline = monotonic() + 600
+                pause = threading.Event()
+                while victim not in cell.healthy_names() and monotonic() < deadline:
+                    pause.wait(0.02)
+                    cell.tick()  # restart and a passing known-answer probe
+                if victim not in cell.healthy_names():
+                    raise AssertionError("the replica was not re-promoted")
+    _C_RETRIED.inc(0)  # an explicit zero: no frame in flight at a link's death
 
 
 def main(argv=None) -> int:

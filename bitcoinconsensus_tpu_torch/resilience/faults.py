@@ -30,6 +30,16 @@ Sites of the port (grep for the literal):
                             `straggle` (simulated lag, read by
                             `shard_delay`)
     mesh.probe              raise kinds at a re-promotion probe
+    ingress.read            raise at a session's frame read: that one
+                            session is torn down (`serving/ingress.py`)
+    ingress.write           raise at a response write: that one session
+                            is torn down, the retrying client recovers
+    sigstore.load           raise at a shard's replay: the shard opens
+                            cold (`models/sigstore.py`)
+    sigstore.append         raise at a shard-log append: one record goes
+                            unpersisted, the verdict path never sees it
+    cell.route              raise at the cell router's session read: one
+                            client session torn down (`cell/router.py`)
 
 `device-loss` raises `InjectedDeviceLoss`, which the mesh's settle counts
 as a per-shard hardware failure feeding its eviction ladder. `fired` counts

@@ -157,9 +157,38 @@ Phases, each printing its own lines; any failure exits non-zero:
    `held=True wrong_accepts=0`. `[xprof]` of one sharded dispatch:
    `ss_epilogue_kernel` charged to `shard_step`, `vt_verify_kernel` to
    `verify_tiles`.
-9. A `kernels` JSON line (with each path's launches of `verify_tiles`,
-   `verdict_checksum`, the epilogue and the SHA-256 kernels), the card
-   line, and the result line.
+9. The service, after everything above (`serving/`, `models/sigstore.py`,
+   `cell/`). `[serve]`: the main path's inputs from 8 client threads over 4
+   tenants through one `VerifyServer` on cuda:0 (default `max_batch`, the
+   lane capacity, and flush), each thread submitting its share without
+   waiting and retrying a shed with `verify_with_retry`: every verdict equal
+   to `[main_path]`'s, every request settled, 0 pending after the draining
+   close; admitted, sheds by reason, batches, mean fill, settle p50/p99,
+   inputs/s and launches; the same run again with a span sink (each span
+   name's summed ms and count). Then 2,000 with BITCOINCONSENSUS_TPU_SERVE_SLO_S
+   at 0.0001 (sheds explicit, `ERR_OVERLOADED`) and 2,000 with dispatch
+   faults armed (a first wave failing with `DispatchFailed`, a second
+   retried clean, 0 wrong ACCEPTs, the server serving after). `[ingress]`:
+   2,000 through `IngressServer` over 4 pipelined sessions; on the same
+   server a garbage frame, an oversized frame, a mid-frame disconnect and a
+   slow-loris reaped at the idle deadline beside 4 well-behaved
+   `IngressClient`s; `ingress.read` / `ingress.write` faults recovered by
+   the retrying client. `[sigstore]`: the 10,000 through `verify_batch`
+   with a `PersistentSigCache`, cold, then reopened (every persisted entry
+   a hit, none dispatched again; appends, replay records, open and warm-up
+   seconds); a poisoned persisted entry caught by the audit and kept out
+   across a reopen; a torn tail healed as misses. `[cell]`: a
+   `ServingCell` of two replica subprocesses on cuda:0 started together
+   (the pids `nvidia-smi --query-compute-apps` shows), 2,000 inputs from 4
+   tenants through the router, a SIGKILL of one replica under 2,000 more
+   (0 lost admitted verdicts, eviction within `evict_after` ticks with a
+   flight dump, the survivor warm on the moved tenants' inputs, a tombstone
+   kept), `cell.route` faults, `no_replica` with both replicas down, and
+   both re-promoted through passing known-answer probes.
+10. A `kernels` JSON line (with each path's launches of `verify_tiles`,
+   `verdict_checksum`, the epilogue and the SHA-256 kernels; the cell's
+   replicas launch in their own processes, read over their control
+   channels), the card line, and the result line.
 
 The script needs the repository beside it; with no CUDA device, or alone in
 a directory, it exits non-zero without a result. `--rehearse-cpu` runs the
@@ -2167,6 +2196,851 @@ def _block_device_sha(block, bad_block, height, plain_view, want, bad_want, devi
     return connect_tup, counts
 
 
+# -- the serving front end, the ingress, the persistent sig cache and the cell,
+# after every phase above, so that those run in the process state they had
+# before this slice ----------------------------------------------------------------
+
+SERVE_CLIENTS, SERVE_TENANTS = 8, 4
+
+
+def _launch_counts():
+    from bitcoinconsensus_tpu_torch.ops import verdict_checksum as VC
+    from bitcoinconsensus_tpu_torch.ops import verify_tiles as VT
+
+    return VT.verify_tiles.launches, VC.verdict_checksum.launches
+
+
+def _metric_by(name, label):
+    """{label value: value} of one labelled metric of the port's registry."""
+    return {dict(k).get(label, ""): v for k, v in _metric_samples(name)}
+
+
+def _delta(after, before):
+    return {k: v - before.get(k, 0) for k, v in after.items() if v - before.get(k, 0)}
+
+
+def _hist_sum_count(name):
+    """(sum, count) of an unlabelled histogram of the port's registry."""
+    from bitcoinconsensus_tpu_torch.obs import get_registry
+
+    m = get_registry().snapshot().get(name) or {"samples": []}
+    return (sum(s.get("sum", 0.0) for s in m["samples"]),
+            sum(s.get("count", 0) for s in m["samples"]))
+
+
+def _quantiles(xs):
+    import numpy as np
+
+    if not xs:
+        return "nan", "nan"
+    a = np.asarray(xs)
+    return f"{np.quantile(a, 0.5):.4f}", f"{np.quantile(a, 0.99):.4f}"
+
+
+def _pipelined(port, sessions, on_sent=None, timeout=300):
+    """Each of `sessions` (a list of (rid, tenant, item) lists) on a socket of
+    its own, every request sent before any answer is read; returns {rid:
+    BatchResult or (code, reason) of an ERR frame}. `on_sent()` runs once all
+    requests are sent."""
+    import socket
+    import threading
+
+    from bitcoinconsensus_tpu_torch.serving import ingress as ING
+
+    socks = [socket.create_connection(("127.0.0.1", port), timeout=timeout)
+             for _ in sessions]
+    out, lock, errors = {}, threading.Lock(), []
+
+    def recv_exactly(s, n):
+        buf = bytearray()
+        while len(buf) < n:
+            chunk = s.recv(n - len(buf))
+            if not chunk:
+                raise ConnectionError("closed mid-exchange")
+            buf.extend(chunk)
+        return bytes(buf)
+
+    def reader(s, n):
+        try:
+            for _ in range(n):
+                ftype, ln = ING.decode_header(recv_exactly(s, ING.HEADER_LEN))
+                payload = recv_exactly(s, ln)
+                if ftype == ING.FRAME_RESP:
+                    rid, res = ING.decode_response_payload(payload)
+                else:
+                    rid, code, reason = ING.decode_error_payload(payload)
+                    res = (code, reason)
+                with lock:
+                    out[rid] = res
+        except Exception as e:  # surfaced as missing rids
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=reader, args=(s, len(reqs)), daemon=True)
+               for s, reqs in zip(socks, sessions)]
+    for t in threads:
+        t.start()
+    for s, reqs in zip(socks, sessions):
+        s.sendall(b"".join(ING.encode_frame(ING.FRAME_REQ, ING.encode_request(r, t, it))
+                           for r, t, it in reqs))
+    if on_sent is not None:
+        on_sent()
+    for t in threads:
+        t.join(timeout)
+    for s in socks:
+        s.close()
+    return out, errors
+
+
+def _serve_phase(items, results, device, launches_around, rehearse) -> None:
+    """`[serve]`: the main path's inputs through one `VerifyServer` on the
+    device, from 8 client threads across 4 tenants (each thread submits its
+    share without waiting; a shed is retried by `verify_with_retry`), with
+    the default `max_batch` (the verifier's lane capacity) and flush; then a
+    short run with BITCOINCONSENSUS_TPU_SERVE_SLO_S set low (sheds must
+    arrive as `OverloadError(ERR_OVERLOADED)`), and one with dispatch faults
+    armed (each admitted request a verdict or an explicit `DispatchFailed`,
+    0 wrong ACCEPTs, the server serving after it)."""
+    import random
+    import threading
+
+    from bitcoinconsensus_tpu_torch.api import Error
+    from bitcoinconsensus_tpu_torch.crypto.torch_backend import TorchSecpVerifier
+    from bitcoinconsensus_tpu_torch.models.sigcache import ScriptExecutionCache, SigCache
+    from bitcoinconsensus_tpu_torch.resilience import faults as F
+    from bitcoinconsensus_tpu_torch.resilience.degrade import DispatchFailed
+    from bitcoinconsensus_tpu_torch.serving import OverloadError, VerifyServer, verify_with_retry
+
+    want = _verdicts(results)
+    # On the CPU a batch takes seconds: an SLO above that keeps the
+    # rehearsal's admission from shedding what the card would admit.
+    slo = 600.0 if rehearse else None
+
+    def server(v, **kw):
+        return VerifyServer(verifier=v, sig_cache=SigCache(),
+                            script_cache=ScriptExecutionCache(), **kw)
+
+    def clients(srv, idx, n_threads, retry=True):
+        """Each thread submits its share of `idx`; returns {i: result or
+        exception} and each request's settle seconds."""
+        out, settle, lock = {}, [], threading.Lock()
+
+        def run(k):
+            rng = random.Random(k)
+            pend = []
+            for i in idx[k::n_threads]:
+                tenant = f"tenant{k % SERVE_TENANTS}"
+                t0 = time.perf_counter()
+                try:
+                    p = srv.submit(items[i], tenant=tenant)
+                except OverloadError as e:
+                    if not retry:
+                        with lock:
+                            out[i] = e
+                        continue
+                    try:
+                        res = verify_with_retry(srv, items[i], tenant=tenant, retries=8,
+                                                max_backoff_s=0.5, timeout_s=300, rng=rng)
+                    except Exception as e2:  # noqa: BLE001 (an explicit outcome)
+                        res = e2
+                    with lock:
+                        out[i] = res
+                        settle.append(time.perf_counter() - t0)
+                    continue
+                p.add_done_callback(lambda _p, t0=t0: settle.append(time.perf_counter() - t0))
+                pend.append((i, p))
+            for i, p in pend:
+                try:
+                    res = p.result(timeout=300)
+                except Exception as e:  # noqa: BLE001 (an explicit outcome)
+                    res = e
+                with lock:
+                    out[i] = res
+
+        threads = [threading.Thread(target=run, args=(k,)) for k in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        return out, settle
+
+    # -- the main run --------------------------------------------------------------
+    v = TorchSecpVerifier(device=device)
+    idx = list(range(len(items)))
+    adm0 = _metric_by("consensus_serving_admitted_total", "tenant")
+    shed0 = _metric_by("consensus_serving_shed_total", "reason")
+    b0 = sum(v for _, v in _metric_samples("consensus_serving_batches_total"))
+    fill0 = _hist_sum_count("consensus_serving_batch_fill")
+    srv = server(v, slo_deadline_s=slo).start()
+
+    def main_run():
+        t0 = time.perf_counter()
+        got = clients(srv, idx, SERVE_CLIENTS)
+        srv.close(drain=True)
+        return got, time.perf_counter() - t0
+
+    (out, settle), dt = launches_around("serve", main_run)
+    launched = _launch_counts()
+    missing = [i for i in idx if i not in out]
+    errors = [i for i in idx if isinstance(out.get(i), BaseException)]
+    differing = sum(_verdicts([out[i]])[0] != want[i] for i in idx
+                    if i in out and not isinstance(out[i], BaseException))
+    shed = _delta(_metric_by("consensus_serving_shed_total", "reason"), shed0)
+    admitted = sum(_delta(_metric_by("consensus_serving_admitted_total", "tenant"),
+                          adm0).values())
+    batches = sum(v for _, v in _metric_samples("consensus_serving_batches_total")) - b0
+    p50, p99 = _quantiles(settle)
+    fill1 = _hist_sum_count("consensus_serving_batch_fill")
+    fill_snap = (fill1[0] - fill0[0], fill1[1] - fill0[1])
+    _line("serve", run="main", inputs=len(items), clients=SERVE_CLIENTS,
+          tenants=SERVE_TENANTS, max_batch=srv.max_batch, flush_s=srv.flush_s,
+          admitted=admitted, shed=json.dumps(shed), batches=int(batches),
+          mean_batch_fill=f"{fill_snap[0] / max(fill_snap[1], 1):.4f}",
+          settle_p50_s=p50, settle_p99_s=p99, seconds=f"{dt:.4f}",
+          inputs_per_s=f"{len(items) / dt:.1f}", differing=differing,
+          errors=len(errors), unsettled=len(missing), pending_after_close=srv.pending,
+          verify_tiles_launches=launched[0], checksum_launches=launched[1])
+    if missing or errors or differing or srv.pending:
+        _fail(f"[serve] main run: {len(missing)} unsettled, {len(errors)} failed, "
+              f"{differing} verdicts differ from [main_path], {srv.pending} pending")
+
+    # The same run again with a span sink attached: each span name's summed
+    # seconds (a span's own and its children's) and count, to see where a
+    # served batch's time goes. Not a timing of the main run.
+    from bitcoinconsensus_tpu_torch.obs import add_sink, remove_sink
+
+    sink = _ListSink()
+    srv_t = server(TorchSecpVerifier(device=device), slo_deadline_s=slo).start()
+    add_sink(sink)
+    try:
+        t0 = time.perf_counter()
+        out_t, _ = clients(srv_t, idx, SERVE_CLIENTS)
+        srv_t.close(drain=True)
+        dt_t = time.perf_counter() - t0
+    finally:
+        remove_sink(sink)
+    totals, n_spans = {}, {}
+    for r in sink.records:
+        totals[r["name"]] = totals.get(r["name"], 0.0) + r["dur_s"]
+        n_spans[r["name"]] = n_spans.get(r["name"], 0) + 1
+    top = sorted(totals, key=lambda k: -totals[k])[:12]
+    differing_t = sum(isinstance(out_t.get(i), BaseException) or i not in out_t
+                      or _verdicts([out_t[i]])[0] != want[i] for i in idx)
+    _line("serve", run="traced", inputs=len(items), seconds=f"{dt_t:.4f}",
+          inputs_per_s=f"{len(items) / dt_t:.1f}", differing=differing_t,
+          span_total_ms=json.dumps({k: round(totals[k] * 1e3, 1) for k in top}),
+          span_counts=json.dumps({k: n_spans[k] for k in top}))
+    if differing_t:
+        _fail("[serve] the traced run's verdicts differ from [main_path]")
+
+    # -- forced overload -------------------------------------------------------------
+    cut = idx[:min(2000, len(items))]
+    os.environ["BITCOINCONSENSUS_TPU_SERVE_SLO_S"] = "0.0001"
+    try:
+        srv2 = server(TorchSecpVerifier(device=device)).start()
+    finally:
+        os.environ.pop("BITCOINCONSENSUS_TPU_SERVE_SLO_S", None)
+    shed0 = _metric_by("consensus_serving_shed_total", "reason")
+    wave = cut[:len(cut) // 4]
+    first, _ = clients(srv2, wave, 1, retry=False)  # evidence for the estimate
+    out2, _ = clients(srv2, cut[len(wave):], 4, retry=False)
+    srv2.close(drain=True)
+    out2.update(first)
+    sheds = [e for e in out2.values() if isinstance(e, OverloadError)]
+    other = [e for e in out2.values()
+             if isinstance(e, BaseException) and not isinstance(e, OverloadError)]
+    wrong_code = sum(int(e.code) != int(Error.ERR_OVERLOADED) for e in sheds)
+    differing2 = sum(_verdicts([r])[0] != want[i] for i, r in out2.items()
+                     if not isinstance(r, BaseException))
+    shed2 = _delta(_metric_by("consensus_serving_shed_total", "reason"), shed0)
+    _line("serve", run="overload", slo_s=srv2.admission.slo_deadline_s, inputs=len(cut),
+          admitted=len(cut) - len(sheds), shed=json.dumps(shed2), explicit=len(sheds),
+          wrong_code=wrong_code, other_errors=len(other), differing=differing2,
+          unsettled=len(cut) - len(out2), pending_after_close=srv2.pending)
+    if not sheds or wrong_code or other or differing2 or len(out2) != len(cut) \
+            or srv2.pending:
+        _fail("[serve] forced overload: sheds must be explicit OverloadError"
+              "(ERR_OVERLOADED) and every admitted verdict equal")
+
+    # -- dispatch faults ---------------------------------------------------------------
+    v3 = TorchSecpVerifier(device=device)
+    srv3 = server(v3, slo_deadline_s=slo).start()
+    plan = F.FaultPlan([F.FaultSpec("torch_backend.dispatch", "raise", count=4),
+                        F.FaultSpec("torch_backend.verdict", "flip", count=1)])
+    half = len(cut) // 2
+    with F.inject(plan, seed=14) as inj:
+        # The first wave's dispatch fails all its attempts (DispatchFailed);
+        # the second wave's first settle is flipped and retried clean.
+        out3, _ = clients(srv3, cut[:half], 4)
+        more, _ = clients(srv3, cut[half:], 4)
+        out3.update(more)
+    failed = [i for i, r in out3.items() if isinstance(r, DispatchFailed)]
+    other = [r for r in out3.values()
+             if isinstance(r, BaseException) and not isinstance(r, DispatchFailed)]
+    verdicts3 = {i: _verdicts([r])[0] for i, r in out3.items()
+                 if not isinstance(r, BaseException)}
+    wrong_accepts = sum(vv[0] and not want[i][0] for i, vv in verdicts3.items())
+    differing3 = sum(vv != want[i] for i, vv in verdicts3.items())
+    after, _ = clients(srv3, cut[:256], 2)  # the same server, the faults disarmed
+    srv3.close(drain=True)
+    differing_after = sum(isinstance(r, BaseException) or _verdicts([r])[0] != want[i]
+                          for i, r in after.items())
+    held = (not other and not wrong_accepts and not differing3 and len(out3) == len(cut)
+            and len(failed) > 0 and len(verdicts3) > 0 and not differing_after
+            and len(after) == len(cut[:256]) and not srv3.pending
+            and inj.fired == {("torch_backend.dispatch", "raise"): 4,
+                              ("torch_backend.verdict", "flip"): 1})
+    _line("serve", run="faults", inputs=len(cut), fired=json.dumps(
+              {f"{s}:{k}": n for (s, k), n in inj.fired.items()}),
+          verdicts=len(verdicts3), dispatch_failed=len(failed), other_errors=len(other),
+          wrong_accepts=wrong_accepts, differing=differing3,
+          served_after=len(after), differing_after=differing_after,
+          retries=int(v3.stats["retries"]), held=held)
+    if not held:
+        _fail("[serve] dispatch faults: the restated gate did not hold")
+
+
+def _ingress_phase(items, results, device, launches_around, rehearse) -> None:
+    """`[ingress]`: 2,000 inputs through `IngressServer` over a
+    `VerifyServer` on the device, 4 sessions pipelining their rids; then, on
+    the same server, hostile sockets (a garbage frame, an oversized frame, a
+    slow-loris reaped by the idle deadline, a mid-frame disconnect) beside 4
+    well-behaved `IngressClient`s; then `ingress.read` / `ingress.write`
+    faults recovered by the retrying client."""
+    import random
+    import socket
+    import threading
+
+    from bitcoinconsensus_tpu_torch.crypto.torch_backend import TorchSecpVerifier
+    from bitcoinconsensus_tpu_torch.models.sigcache import ScriptExecutionCache, SigCache
+    from bitcoinconsensus_tpu_torch.resilience import faults as F
+    from bitcoinconsensus_tpu_torch.serving import (IngressClient, IngressServer,
+                                                    VerifyServer, verify_with_retry)
+    from bitcoinconsensus_tpu_torch.serving import ingress as ING
+
+    want = _verdicts(results)
+    cut = list(range(min(2000, len(items))))
+    slo = 600.0 if rehearse else None
+    srv = VerifyServer(verifier=TorchSecpVerifier(device=device), sig_cache=SigCache(),
+                       script_cache=ScriptExecutionCache(), slo_deadline_s=slo).start()
+    try:
+        with IngressServer(srv, idle_s=20.0 if rehearse else 3.0,
+                           max_frame=1 << 16) as ing:
+            sessions = [[(1 + i, f"tenant{k}", items[i]) for i in cut[k::4]]
+                        for k in range(4)]
+
+            def clean():
+                t0 = time.perf_counter()
+                got = _pipelined(ing.port, sessions)
+                return got, time.perf_counter() - t0
+
+            (got, errs), dt = launches_around("ingress", clean)
+            launched = _launch_counts()
+            differing = sum(not hasattr(got.get(1 + i), "ok")
+                            or _verdicts([got[1 + i]])[0] != want[i] for i in cut)
+            _line("ingress", run="clean", inputs=len(cut), sessions=4,
+                  seconds=f"{dt:.4f}", inputs_per_s=f"{len(cut) / dt:.1f}",
+                  differing=differing, reader_errors=len(errs),
+                  verify_tiles_launches=launched[0], checksum_launches=launched[1])
+            if differing or errs:
+                _fail("[ingress] clean run: verdicts differ from [main_path]")
+
+            # Hostile sockets beside well-behaved clients, on the same server.
+            e0 = ING._I_PROTO_ERRS.value()
+            r0 = ING._I_REAPS.value()
+            good_out, lock = {}, threading.Lock()
+
+            def good_client(k):
+                with IngressClient(port=ing.port, timeout_s=300) as cli:
+                    for i in cut[k:200:4]:
+                        r = cli.verify(items[i], tenant=f"good{k}")
+                        with lock:
+                            good_out[i] = r
+
+            def exchange(frame):
+                with socket.create_connection(("127.0.0.1", ing.port), timeout=60) as s:
+                    s.sendall(frame)
+                    buf = b""
+                    while len(buf) < ING.HEADER_LEN:
+                        buf += s.recv(ING.HEADER_LEN - len(buf))
+                    ftype, ln = ING.decode_header(buf)
+                    payload = b""
+                    while len(payload) < ln:
+                        payload += s.recv(ln - len(payload))
+                    closed = s.recv(1) == b""
+                    return ftype, ING.decode_error_payload(payload)[1], closed
+
+            threads = [threading.Thread(target=good_client, args=(k,)) for k in range(4)]
+            for t in threads:
+                t.start()
+            garbage = exchange(ING.encode_frame(0x7F, b"junk"))
+            oversized = exchange(bytes([ING.FRAME_REQ]) + (1 << 20).to_bytes(4, "big"))
+            with socket.create_connection(("127.0.0.1", ing.port), timeout=60) as s:
+                s.sendall(bytes([ING.FRAME_REQ]) + (64).to_bytes(4, "big") + b"half")
+            t_loris = time.perf_counter()
+            with socket.create_connection(("127.0.0.1", ing.port), timeout=120) as s:
+                s.sendall(bytes([ING.FRAME_REQ]) + (100).to_bytes(4, "big") + b"ab")
+                reaped = s.recv(1) == b""
+            loris_s = time.perf_counter() - t_loris
+            for t in threads:
+                t.join(300)
+            good_diff = sum(_verdicts([r])[0] != want[i] for i, r in good_out.items())
+            deadline = time.perf_counter() + 10
+            while ING._I_PROTO_ERRS.value() < e0 + 3 and time.perf_counter() < deadline:
+                time.sleep(0.01)
+            proto = ING._I_PROTO_ERRS.value() - e0
+            held = (garbage == (ING.FRAME_ERR, ING.ERR_PROTO_BAD_TYPE, True)
+                    and oversized == (ING.FRAME_ERR, ING.ERR_PROTO_OVERSIZED, True)
+                    and reaped and ING._I_REAPS.value() - r0 >= 1 and proto == 3
+                    and len(good_out) == len(cut[:200]) and not good_diff)
+            _line("ingress", run="hostile", garbage=garbage[1], oversized=oversized[1],
+                  mid_frame_disconnect=1, slow_loris_reaped=reaped,
+                  slow_loris_s=f"{loris_s:.3f}", idle_s=ing.idle_s,
+                  protocol_errors=proto, reaps=ING._I_REAPS.value() - r0,
+                  good_clients=4, good_verdicts=len(good_out), good_differing=good_diff,
+                  held=held)
+            if not held:
+                _fail("[ingress] hostile sockets were not contained to their sessions")
+
+            # Injected faults, recovered by the retrying client.
+            plan = F.FaultPlan([F.FaultSpec("ingress.read", "raise", count=2),
+                                F.FaultSpec("ingress.write", "raise", count=2)])
+            fault_out = {}
+            with F.inject(plan, seed=5) as inj:
+                with IngressClient(port=ing.port, timeout_s=300) as cli:
+                    rng = random.Random(5)
+                    for i in cut[:32]:
+                        fault_out[i] = verify_with_retry(cli, items[i], tenant="faulty",
+                                                         retries=6, rng=rng)
+            fdiff = sum(_verdicts([r])[0] != want[i] for i, r in fault_out.items())
+            fired = {f"{s}:{k}": n for (s, k), n in inj.fired.items()}
+            _line("ingress", run="faults", inputs=len(fault_out), fired=json.dumps(fired),
+                  differing=fdiff, held=not fdiff and sum(fired.values()) == 4)
+            if fdiff or sum(fired.values()) != 4:
+                _fail("[ingress] injected read/write faults were not recovered")
+    finally:
+        srv.close(drain=True)
+
+
+def _sigstore_phase(items, corrupted, results, device, launches_around, rehearse,
+                    out_dir) -> None:
+    """`[sigstore]`: the main path's inputs through `verify_batch` with a
+    `PersistentSigCache` (cold), then reopened (warm: hits and dispatched
+    lanes); a poisoned persisted entry caught by the audit and kept out
+    across a reopen; a torn tail healed as misses."""
+    import shutil
+    import tempfile
+
+    from bitcoinconsensus_tpu_torch.crypto.torch_backend import TorchSecpVerifier
+    from bitcoinconsensus_tpu_torch.models.batch import verify_batch
+    from bitcoinconsensus_tpu_torch.models.sigcache import ScriptExecutionCache
+    from bitcoinconsensus_tpu_torch.models.sigstore import _OP_DEL, _REC_LEN, PersistentSigCache
+    from bitcoinconsensus_tpu_torch.resilience import guards as G
+
+    want = _verdicts(results)
+    root = tempfile.mkdtemp(prefix="sigstore-", dir=out_dir)
+    try:
+        d = os.path.join(root, "store")
+        ap0 = sum(v for _, v in _metric_samples("consensus_sigstore_appends_total"))
+        store = PersistentSigCache(d)
+        v = TorchSecpVerifier(device=device)
+
+        def cold_run():
+            t0 = time.perf_counter()
+            res = verify_batch(items, verifier=v, sig_cache=store,
+                               script_cache=ScriptExecutionCache())
+            return res, time.perf_counter() - t0
+
+        cold, cold_s = launches_around("sigstore_cold", cold_run)
+        cold_launches = _launch_counts()[0]
+        entries = len(store)
+        store.close()
+        appends = sum(v for _, v in _metric_samples("consensus_sigstore_appends_total")) - ap0
+        t0 = time.perf_counter()
+        store2 = PersistentSigCache(d)
+        open_s = time.perf_counter() - t0
+        v2 = TorchSecpVerifier(device=device)
+
+        def warm_run():
+            t0 = time.perf_counter()
+            res = verify_batch(items, verifier=v2, sig_cache=store2,
+                               script_cache=ScriptExecutionCache())
+            return res, time.perf_counter() - t0
+
+        warm, warm_s = launches_around("sigstore_warm", warm_run)  # the misses
+        warm_launches = _launch_counts()[0]
+        # Only successes are cached, so a miss is a check whose verdict is
+        # false: a corrupted input's, or a 2-of-3's speculative pairing of a
+        # signature with a key it does not sign for. The gate reads the
+        # persisted entries' hits; the probes' hit rate is reported beside.
+        probes = store2.hits + store2.misses
+        hit_rate = store2.hits / max(probes, 1)
+        entry_rate = store2.hits / max(entries, 1)
+        d_cold = sum(a != b for a, b in zip(_verdicts(cold), want))
+        d_warm = sum(a != b for a, b in zip(_verdicts(warm), want))
+        redispatched = int(v2.stats["lanes"]) - store2.misses
+        _line("sigstore", run="cold_warm", inputs=len(items), checks=int(v.stats["lanes"]),
+              entries=entries, appends=int(appends), replay_records=store2.replay_applied,
+              replay_skipped=store2.replay_skipped, open_s=f"{open_s:.4f}",
+              warmup_s=("none" if store2.warmup_s is None else f"{store2.warmup_s:.4f}"),
+              cold_s=f"{cold_s:.4f}", warm_s=f"{warm_s:.4f}",
+              warm_hits=store2.hits, warm_misses=store2.misses,
+              hit_rate=f"{hit_rate:.4f}", entries_hit_rate=f"{entry_rate:.4f}",
+              warm_lanes=int(v2.stats["lanes"]),
+              persisted_entries_redispatched=redispatched,
+              cold_launches=cold_launches, warm_launches=warm_launches,
+              differing_cold=d_cold, differing_warm=d_warm)
+        store2.close()
+        if d_cold or d_warm or entry_rate < 0.9 or redispatched:
+            _fail("[sigstore] the warm rerun missed its gate (>= 90% of the persisted "
+                  "entries hit, none dispatched again, verdicts equal)")
+
+        # Torn tail: half a record cut from one shard of a copy of the store
+        # as the clean runs left it: the lost record costs a miss.
+        dt_ = os.path.join(root, "torn")
+        shutil.copytree(d, dt_)
+        logs = sorted(f for f in os.listdir(dt_) if f.endswith(".log"))
+        path = os.path.join(dt_, logs[0])
+        os.truncate(path, os.path.getsize(path) - _REC_LEN // 2)
+        s6 = PersistentSigCache(dt_)
+        skipped = s6.replay_skipped
+        torn = verify_batch(items, verifier=TorchSecpVerifier(device=device), sig_cache=s6,
+                            script_cache=ScriptExecutionCache())
+        tdiff = sum(a != b for a, b in zip(_verdicts(torn), want))
+        _line("sigstore", run="torn_tail", shard=logs[0], replay_skipped=skipped,
+              misses=s6.misses, hits=s6.hits, differing=tdiff,
+              held=skipped == 1 and not tdiff and s6.misses >= 1)
+        s6.close()
+        if skipped != 1 or tdiff:
+            _fail("[sigstore] a torn tail gave a wrong verdict or was not healed")
+
+        # Poison: the keys of a corrupted input's false checks, planted.
+        bad_idx = [i for i, b in enumerate(corrupted) if b][:4]
+        target = [items[i] for i in bad_idx]
+        os.environ["BITCOINCONSENSUS_TPU_IDX"] = "0"
+        try:
+            rec = TorchSecpVerifier(device=device)
+            sent = []
+            run = rec.verify_checks
+
+            def recording(checks):
+                res = run(checks)
+                sent.extend(zip(checks, res))
+                return res
+
+            rec.verify_checks = recording
+            s3 = PersistentSigCache(d)
+            verify_batch(target, verifier=rec, sig_cache=s3,
+                         script_cache=ScriptExecutionCache())
+            poison = s3.keys_for_checks([c for c, r in sent if not r])
+            s3.add_keys(poison)
+            s3.close()
+        finally:
+            os.environ.pop("BITCOINCONSENSUS_TPU_IDX", None)
+        s4 = PersistentSigCache(d)
+        planted = sum(s4.peek_key(k) for k in poison)
+        v4 = TorchSecpVerifier(device=device)
+        G.set_cache_audit(True)
+        try:
+            got = verify_batch(target, verifier=v4, sig_cache=s4,
+                               script_cache=ScriptExecutionCache())
+        finally:
+            G.set_cache_audit(False)
+        caught = int(v4.stats["cache_poison_caught"])
+        gone_now = not any(s4.peek_key(k) for k in poison)
+        s4.close()
+        s5 = PersistentSigCache(d)
+        gone_after = not any(s5.peek_key(k) for k in poison)
+        s5.close()
+        pdiff = sum(a != want[i] for a, i in zip(_verdicts(got), bad_idx))
+        held = planted == len(poison) > 0 and caught >= 1 and gone_now and gone_after \
+            and not pdiff
+        _line("sigstore", run="poison", inputs=len(target), planted=planted,
+              cache_poison_caught=caught, differing=pdiff, evicted=gone_now,
+              evicted_after_reopen=gone_after, held=held)
+        if not held:
+            _fail("[sigstore] the poisoned persisted entry was not caught and kept out")
+
+        # A torn tombstone: the audit's DEL records are the last of their
+        # shards; cut each in half and the poisoned entries come back on
+        # replay. Only the audit stands between them and a wrong ACCEPT, so
+        # the rerun runs with it armed and must catch them again.
+        torn_dels = 0
+        for f in sorted(os.listdir(d)):
+            if not f.endswith(".log"):
+                continue
+            p = os.path.join(d, f)
+            with open(p, "rb") as fh:
+                fh.seek(max(0, os.path.getsize(p) - _REC_LEN))
+                last = fh.read(_REC_LEN)
+            if len(last) == _REC_LEN and last[:1] == _OP_DEL and last[1:33] in poison:
+                os.truncate(p, os.path.getsize(p) - _REC_LEN // 2)
+                torn_dels += 1
+        s7 = PersistentSigCache(d)
+        back = sum(s7.peek_key(k) for k in poison)
+        v7 = TorchSecpVerifier(device=device)
+        G.set_cache_audit(True)
+        try:
+            got7 = verify_batch(target, verifier=v7, sig_cache=s7,
+                                script_cache=ScriptExecutionCache())
+        finally:
+            G.set_cache_audit(False)
+        s7.close()
+        caught7 = int(v7.stats["cache_poison_caught"])
+        d7 = sum(a != want[i] for a, i in zip(_verdicts(got7), bad_idx))
+        held7 = not d7 and caught7 >= back
+        _line("sigstore", run="torn_tombstone", torn_dels=torn_dels, resurrected=back,
+              caught_with_audit=caught7, differing=d7, held=held7)
+        if not held7:
+            _fail("[sigstore] a resurrected poisoned entry was not caught by the audit")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _is_p2wsh(item) -> bool:
+    spk = (item.spent_outputs[item.input_index][1] if item.spent_outputs is not None
+           else item.spent_output_script)
+    return len(spk) == 34 and spk[:2] == b"\x00\x20"
+
+
+def _smi(query: str) -> str:
+    proc = subprocess.run(["nvidia-smi", query, "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60)
+    return proc.stdout.strip()
+
+
+def _cell_phase(items, results, device, rehearse, out_dir) -> dict:
+    """`[cell]`: `ServingCell(n_replicas=2)` with replica subprocesses on the
+    device (each its own CUDA context on cuda:0, started together); 2,000
+    inputs from 4 tenants through the router; one replica killed with
+    SIGKILL under 2,000 more (every admitted request a verdict, after the
+    router's exactly-once retry or an explicit ERR_OVERLOADED retried by the
+    client), its eviction with a flight dump, the shard handoff (the
+    survivor warm on the moved tenants' earlier inputs, a tombstone kept),
+    `cell.route` faults, `no_replica` sheds with both replicas down, and
+    re-promotion of both through passing known-answer probes."""
+    import glob
+    import random
+    import shutil
+    import tempfile
+
+    from bitcoinconsensus_tpu_torch.cell import ServingCell
+    from bitcoinconsensus_tpu_torch.models.sigstore import _OP_ADD, _OP_DEL, ShardLog
+    from bitcoinconsensus_tpu_torch.obs import flight
+    from bitcoinconsensus_tpu_torch.resilience import faults as F
+    from bitcoinconsensus_tpu_torch.serving import IngressClient, OverloadError
+    from bitcoinconsensus_tpu_torch.serving import verify_with_retry
+
+    want = _verdicts(results)
+    half = min(2000, len(items) // 2)
+    load_idx, kill_idx = list(range(half)), list(range(half, 2 * half))
+    tenants = [f"cell-t{k}" for k in range(4)]
+    root = tempfile.mkdtemp(prefix="cell-", dir=out_dir)
+    flight_dir = os.path.join(root, "flight")
+    os.environ["BITCOINCONSENSUS_TPU_FLIGHT_DIR"] = flight_dir
+    flight.set_enabled(True)
+    counts = {}
+    if rehearse:  # on the CPU a batch takes seconds: a longer SLO, inherited
+        os.environ["BITCOINCONSENSUS_TPU_SERVE_SLO_S"] = "600"
+    t0 = time.perf_counter()
+    cell = ServingCell(n_replicas=2, root_dir=os.path.join(root, "tier"),
+                       device="cpu" if rehearse else None,
+                       evict_after=2, backoff_s=0.05, max_backoff_s=0.5,
+                       probe_timeout_s=300.0 if rehearse else 60.0)
+
+    def total(name):
+        return sum(v for _, v in _metric_samples(name))
+
+    def sessions(idx, base):
+        return [[(base + i, tenants[i % 4], items[i]) for i in idx if i % 4 == k]
+                for k in range(4)]
+
+    def settle(idx, got, base):
+        """Retry every explicit ERR through a retrying client: (verdicts
+        differing, rids never answered, explicit ERRs, wrong ACCEPTs)."""
+        errs = [i for i in idx if not hasattr(got.get(base + i), "ok")]
+        lost = [i for i in idx if base + i not in got]
+        with IngressClient(port=cell.port, timeout_s=300) as cli:
+            rng = random.Random(base)
+            for i in errs:
+                got[base + i] = verify_with_retry(cli, items[i], tenant=tenants[i % 4],
+                                                  retries=8, max_backoff_s=0.5, rng=rng)
+        vs = {i: _verdicts([got[base + i]])[0] for i in idx}
+        return (sum(vs[i] != want[i] for i in idx), lost, errs,
+                sum(vs[i][0] and not want[i][0] for i in idx))
+
+    mem0 = "cpu" if rehearse else _smi("--query-gpu=memory.used")
+    try:
+        cell.start()
+        start_s = time.perf_counter() - t0
+        pids = {n: r.pid for n, r in cell.replicas.items()}
+        # nvidia-smi lists the card's compute processes by the pids of its
+        # own PID namespace, which a container may hide; each replica
+        # also reports its pid and whether it initialised CUDA.
+        apps = "cpu" if rehearse else _smi("--query-compute-apps=pid,used_memory")
+        mem1 = "cpu" if rehearse else _smi("--query-gpu=memory.used")
+        own = {n: r.control({"cmd": "stats"}) for n, r in cell.replicas.items()}
+        contexts = sum(own[n]["cuda_initialized"] and own[n]["pid"] == pids[n]
+                       for n in own)
+        _line("cell", run="start", replicas=len(pids), pids=json.dumps(pids),
+              start_s=json.dumps({n: round(r.start_s, 3) for n, r in cell.replicas.items()}),
+              cell_start_s=f"{start_s:.3f}", compute_apps=json.dumps(apps),
+              memory_used_before=json.dumps(mem0), memory_used_after=json.dumps(mem1),
+              replica_cuda_contexts=contexts)
+        if not rehearse and contexts != 2:
+            _fail("[cell] the two replica subprocesses do not each hold a context on the card")
+
+        t1 = time.perf_counter()
+        got, _errs = _pipelined(cell.port, sessions(load_idx, 10_000))
+        load_s = time.perf_counter() - t1
+        diff, lost, errs, wa = settle(load_idx, got, 10_000)
+        stats = {n: cell.replicas[n].control({"cmd": "stats"}) for n in cell.replicas}
+        counts["cell_replicas"] = (sum(s["verify_tiles_launches"] for s in stats.values()),
+                                   sum(s["checksum_launches"] for s in stats.values()))
+        _line("cell", run="load", inputs=len(load_idx), tenants=4,
+              seconds=f"{load_s:.4f}", inputs_per_s=f"{len(load_idx) / load_s:.1f}",
+              differing=diff, explicit_errors=len(errs), unanswered=len(lost),
+              wrong_accepts=wa, replica_launches=json.dumps(
+                  {n: [s["verify_tiles_launches"], s["checksum_launches"]]
+                   for n, s in stats.items()}))
+        if diff or wa or lost or (not rehearse and not all(
+                s["verify_tiles_launches"] for s in stats.values())):
+            _fail("[cell] load: verdicts differ from [main_path], or a replica "
+                  "launched no verify kernel")
+
+        # A tombstone in the victim's log (ADD then DEL of a planted key) that
+        # the handoff must carry over in order.
+        victim = cell.router._home.lookup(tenants[0])
+        survivor = next(n for n in cell.replicas if n != victim)
+        moved = [t for t in tenants if cell.router._home.lookup(t) == victim]
+        tomb = b"\x5a" * 32
+        log = ShardLog(os.path.join(cell.tier.store_dir(victim),
+                                    "shard-%02d.log" % (tomb[0] % cell.shards)))
+        log.append(_OP_ADD, tomb)
+        log.append(_OP_DEL, tomb)
+        log.close()
+        ev0, rt0 = total("consensus_cell_evictions_total"), \
+            total("consensus_cell_retried_frames_total")
+        flight.reset()
+
+        def kill_victim():
+            cell.replicas[victim].kill()  # SIGKILL, with the frames in flight
+
+        got2, _errs2 = _pipelined(cell.port, sessions(kill_idx, 20_000),
+                                  on_sent=kill_victim)
+        ticks = 0
+        while victim in cell.healthy_names() and ticks < 10:
+            cell.tick()
+            ticks += 1
+        dumps = glob.glob(os.path.join(flight_dir, "flight_dump_cell_eviction_*.json"))
+        diff2, lost2, errs2, wa2 = settle(kill_idx, got2, 20_000)
+        retried = total("consensus_cell_retried_frames_total") - rt0
+        evicted = total("consensus_cell_evictions_total") - ev0
+        # The moved tenants' load-run inputs, which only the victim had seen,
+        # now on the survivor: warm through the handed-off shards. Single-key
+        # inputs only: a 2-of-3 also probes its false speculative pairings,
+        # which are never cached and so miss on any store.
+        s0 = cell.replicas[survivor].control({"cmd": "stats"})
+        moved_idx = [i for i in load_idx if tenants[i % 4] in moved
+                     and not _is_p2wsh(items[i])]
+        got3, _ = _pipelined(cell.port, [[(30_000 + i, tenants[i % 4], items[i])
+                                           for i in moved_idx]])
+        s1 = cell.replicas[survivor].control({"cmd": "stats"})
+        probes, hits = s1["probes"] - s0["probes"], s1["hits"] - s0["hits"]
+        warm = hits / max(probes, 1)
+        tomb_present = cell.replicas[survivor].control(
+            {"cmd": "peek", "key": tomb.hex()})["present"]
+        mdiff = sum(not hasattr(got3.get(30_000 + i), "ok")
+                    or _verdicts([got3[30_000 + i]])[0] != want[i] for i in moved_idx)
+        held = (not diff2 and not wa2 and not lost2
+                and ticks <= cell.supervisor.evict_after
+                and victim not in cell.healthy_names() and len(dumps) >= 1
+                and probes > 0 and warm >= 0.9 and not tomb_present and not mdiff
+                and evicted == 1)
+        _line("cell", run="kill", victim=victim, moved_tenants=len(moved),
+              inputs=len(kill_idx), explicit_errors=len(errs2), unanswered=len(lost2),
+              retried_exactly_once=int(retried), lost_admitted_verdicts=diff2,
+              wrong_accepts=wa2, evict_ticks=ticks,
+              evict_after=cell.supervisor.evict_after, flight_dumps=len(dumps),
+              moved_inputs=len(moved_idx), survivor_probes=probes, survivor_hits=hits,
+              survivor_warm=f"{warm:.4f}", tombstone_kept=not tomb_present,
+              moved_differing=mdiff, held=held)
+        if not held:
+            _fail("[cell] the kill -9 case did not hold")
+
+        # cell.route faults: each tears one client session down; the retrying
+        # client reconnects.
+        with F.inject(F.FaultPlan([F.FaultSpec("cell.route", "raise", count=2)]),
+                      seed=7) as inj:
+            with IngressClient(port=cell.port, timeout_s=300) as cli:
+                rng = random.Random(7)
+                route_out = {i: verify_with_retry(cli, items[i], tenant=tenants[i % 4],
+                                                  retries=6, rng=rng)
+                             for i in load_idx[:32]}
+        rdiff = sum(_verdicts([r])[0] != want[i] for i, r in route_out.items())
+        fired = inj.fired.get(("cell.route", "raise"), 0)
+        _line("cell", run="route_faults", inputs=len(route_out), fired=fired,
+              differing=rdiff, held=fired == 2 and not rdiff)
+        if fired != 2 or rdiff:
+            _fail("[cell] cell.route faults were not recovered")
+
+        # Both down: the victim held out of its restart, the survivor killed
+        # too; the router answers `no_replica`, explicitly.
+        sup = cell.supervisor
+        sup._state[victim].next_retry_at = float("inf")
+        cell.replicas[survivor].kill()
+        ticks2 = 0
+        while cell.healthy_names() and ticks2 < 10:
+            cell.tick()
+            ticks2 += 1
+        with IngressClient(port=cell.port, timeout_s=60) as cli:
+            try:
+                cli.verify(items[0], tenant=tenants[0])
+                no_replica = "answered"
+            except OverloadError as e:
+                no_replica = f"{e.reason}:{int(e.code)}"
+        # Re-promotion of both, each only through a passing known-answer probe.
+        flight.reset()
+        rp0 = total("consensus_cell_repromotions_total")
+        for name in cell.replicas:
+            sup._state[name].next_retry_at = 0.0
+        t2 = time.perf_counter()
+        deadline = t2 + (900 if rehearse else 240)
+        while len(cell.healthy_names()) < 2 and time.perf_counter() < deadline:
+            time.sleep(0.05)
+            cell.tick()
+        repromote_s = time.perf_counter() - t2
+        events = flight.events()
+        proven = []
+        for j, ev in enumerate(events):
+            if ev["kind"] == "cell.promote":
+                proven.append(any(
+                    e["kind"] == "cell.probe" and e.get("replica") == ev["replica"]
+                    and e.get("phase") == "repromote" and e.get("ok")
+                    for e in events[:j]))
+        repromoted = total("consensus_cell_repromotions_total") - rp0
+        with IngressClient(port=cell.port, timeout_s=300) as cli:
+            after = {i: cli.verify(items[i], tenant=tenants[i % 4]) for i in load_idx[:32]}
+        adiff = sum(_verdicts([r])[0] != want[i] for i, r in after.items())
+        held = (no_replica == "no_replica:7" and len(cell.healthy_names()) == 2
+                and repromoted == 2 and len(proven) == 2 and all(proven) and not adiff)
+        _line("cell", run="repromote", no_replica=no_replica, repromoted=int(repromoted),
+              through_passing_probe=json.dumps(proven), repromote_s=f"{repromote_s:.3f}",
+              restart_s=json.dumps({n: round(r.start_s, 3)
+                                    for n, r in cell.replicas.items()}),
+              healthy=json.dumps(sorted(cell.healthy_names())), differing_after=adiff,
+              held=held)
+        if not held:
+            _fail("[cell] no_replica sheds or re-promotion did not hold")
+    finally:
+        cell.close()
+        flight.set_enabled(False)
+        os.environ.pop("BITCOINCONSENSUS_TPU_FLIGHT_DIR", None)
+        if rehearse:
+            os.environ.pop("BITCOINCONSENSUS_TPU_SERVE_SLO_S", None)
+        shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rehearse-cpu", action="store_true",
@@ -2704,6 +3578,19 @@ def main() -> int:
                                         rehearse, path_launches)
     _mesh_faults_phase(mesh_ctx, device, rehearse)
     _mesh_xprof_phase(mesh_ctx, device, sync, rehearse, out_dir)
+
+    # -- serving, ingress, the persistent sig cache and the cell, after every
+    # phase above, so that those run in the process state they had before ----
+    t_serving = time.perf_counter()
+    _serve_phase(items, results, device, launches_around, rehearse)
+    _ingress_phase(items, results, device, launches_around, rehearse)
+    _sigstore_phase(items, corrupted, results, device, launches_around, rehearse, out_dir)
+    cell_counts = _cell_phase(items, results, device, rehearse, out_dir)
+    # The replicas' launches happen in their own processes, read over their
+    # control channels after the load: not this process's counts.
+    path_launches["cell_replica_processes"] = cell_counts["cell_replicas"][0]
+    checksum_launches["cell_replica_processes"] = cell_counts["cell_replicas"][1]
+    _line("serving_phases", seconds=f"{time.perf_counter() - t_serving:.1f}")
     kernels.insert(2, {
         "name": "shard_epilogue", "route": "cuda", "source": MESH_SOURCE,
         "replaces": "bitcoinconsensus_tpu/parallel/mesh.py:201 (make_sharded_step's "

@@ -817,3 +817,62 @@ def test_cuda_mesh_device_loss_evicts_and_continues():
     assert v.mesh.size == 3 and "1" not in v.mesh.ids
     got2, verdict2 = v.verify_checks_with_verdict(checks)
     assert np.array_equal(got2, want) and verdict2 and len(v.last_shard_lanes) == 3
+
+
+# -- the serving front end and the cell on the card ------------------------------
+
+
+@pytest.mark.gpu
+def test_verify_server_on_cuda_equals_verify_batch():
+    """`VerifyServer()` takes the port's default verifier on cuda:0: 256
+    mixed inputs from 4 tenants settle to `verify_batch`'s verdicts, and the
+    server launched the verify kernel."""
+    _need_cuda()
+    from bitcoinconsensus_tpu_torch.serving import VerifyServer
+
+    items, _bad = B.mixed_items(256, seed=14, corrupt_rate=0.05)
+    want = verify_batch(items, verifier=TorchSecpVerifier(), sig_cache=SigCache(),
+                        script_cache=ScriptExecutionCache())
+    VT.verify_tiles.launches = 0
+    with VerifyServer(sig_cache=SigCache(), script_cache=ScriptExecutionCache()) as srv:
+        assert srv._verifier.device == torch.device("cuda:0")
+        pend = [srv.submit(it, tenant=f"t{i % 4}") for i, it in enumerate(items)]
+        got = [p.result(timeout=300) for p in pend]
+    torch.cuda.synchronize()
+    assert VT.verify_tiles.launches > 0
+    assert [(r.ok, r.error, r.script_error) for r in got] == \
+        [(r.ok, r.error, r.script_error) for r in want]
+
+
+@pytest.mark.gpu
+def test_replica_process_on_the_default_device_answers_its_probe(tmp_path):
+    """A `ReplicaProcess` with no device runs on cuda:0 and answers its
+    known-answer pair (accept and reject) over the wire; its control channel
+    reports launches of the verify and checksum kernels."""
+    _need_cuda()
+    from bitcoinconsensus_tpu_torch.cell import ReplicaProcess, make_probe_items, probe_replica
+
+    r = ReplicaProcess("g0", store_dir=str(tmp_path / "g0"))
+    assert r.device == "cuda:0"
+    r.start()
+    try:
+        assert probe_replica(r.addr, make_probe_items(), timeout_s=120)
+        stats = r.control({"cmd": "stats"})
+        assert stats["pid"] == r.pid and stats["cuda_initialized"]
+        assert stats["verify_tiles_launches"] > 0
+        assert stats["checksum_launches"] == stats["verify_tiles_launches"]
+    finally:
+        r.kill()
+
+
+@pytest.mark.gpu
+def test_cell_entries_default_to_the_card_and_raise_without_it(monkeypatch, tmp_path):
+    _need_cuda()
+    from bitcoinconsensus_tpu_torch.cell import ServingCell, StubReplica
+
+    assert StubReplica().device == "cuda:0"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StubReplica()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingCell(stub=True, root_dir=str(tmp_path))

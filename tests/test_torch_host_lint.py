@@ -7,7 +7,11 @@ held against the JAX package's (`analysis/host_lint.py`).
   literal, `import random`, `time.time()`, an unregistered recoder, and a
   device-to-host copy in a dispatch function;
 - what only the port has: the sanctioned settle seams of the `sync` rule,
-  the `.cu` scan of the scalar-coverage rule and its stated exemption.
+  the `.cu` scan of the scalar-coverage rule and its stated exemption;
+- the serving front end, the cell and the persistent store: the `sync`
+  rule over `serving/ingress.py` and `models/sigstore.py` (the reference's
+  targets), the clock rule over `serving/` and `cell/`, each clean under
+  both lints and flagging a planted device copy or clock read.
 """
 
 import os
@@ -178,3 +182,38 @@ def test_accumulate_adds_a_normal_exit_only():
         with accumulate(stats, "lane_prep_s"):
             raise RuntimeError("x")
     assert stats["lane_prep_s"] == first
+
+
+@pytest.mark.parametrize("rel, anchor, plant, rules", [
+    ("serving/ingress.py", "        sess.pending[rid] = req\n",
+     "        item.spending_tx.cpu()\n", "SYNC_RULES"),
+    ("models/sigstore.py", "        self._set_tier_gauges()\n\n    def _set_tier_gauges",
+     None, "SYNC_RULES"),
+    ("serving/queue.py", "            self._total += 1\n",
+     "            time.perf_counter()\n", "TIMING_RULES"),
+    ("cell/replica.py", "        st.fail_streak += 1\n",
+     "        time.monotonic()\n", "TIMING_RULES"),
+])
+def test_serving_cell_and_sigstore_are_linted(tmp_path, rel, anchor, plant, rules):
+    """Each new target is clean under the port's rule and the reference's
+    and flags what is planted in a copy of it (a planted clock read as the
+    reference's rule flags it too)."""
+    real = os.path.join(PKG, rel)
+    assert hl.lint_paths([real], rules=getattr(hl, rules)) == []
+    assert ref_hl.lint_paths([real], rules=getattr(ref_hl, rules)) == []
+    src = open(real, encoding="utf-8").read()
+    if plant is None:  # the store: a device copy at the end of a method
+        anchor = "            self._set_tier_gauges()\n            entries = self._entries\n"
+        plant = "            np.asarray(entries)\n"
+    assert src.count(anchor) >= 1
+    i = src.index(anchor) + len(anchor)
+    planted = src[:i] + plant + src[i:]
+    line = planted[:i].count("\n") + 1
+    path = tmp_path / os.path.basename(rel)
+    path.write_text(planted)
+    found = _found(hl.lint_paths([str(path)], rules=getattr(hl, rules)))
+    if rules == "SYNC_RULES":  # the port's banned calls are torch's
+        assert found == {("sync", line)}
+    else:
+        assert found == {("time-dependence", line)} == _found(
+            ref_hl.lint_paths([str(path)], rules=ref_hl.TIMING_RULES))

@@ -409,10 +409,14 @@ def test_stats_gate_passes_on_the_cpu(monkeypatch, capsys):
     assert set(cuda) - set(cpu) == set(stats.REQUIRED_METRICS["device-truth"])
     assert "consensus_resilience_level" not in cuda
     assert set(stats.REQUIRED_METRICS["mesh"]) <= set(cpu)
-    assert not [n for n in cuda if n.startswith(("consensus_serving_",
-                                                 "consensus_ingress_", "consensus_cell_",
-                                                 "consensus_sigstore_",
-                                                 "consensus_gauntlet_"))]
+    for group, prefix in (("serving", "consensus_serving_"),
+                          ("ingress", "consensus_ingress_"),
+                          ("sigstore", "consensus_sigstore_"),
+                          ("cell", "consensus_cell_")):
+        names = stats.REQUIRED_METRICS[group]
+        assert names and all(n.startswith(prefix) for n in names)
+        assert set(names) <= set(cpu)
+    assert not [n for n in cuda if n.startswith("consensus_gauntlet_")]
 
 
 # -- which of the reference's resilience metrics the port registers -------------------
@@ -472,9 +476,16 @@ def test_stats_gate_requires_the_reference_metrics_of_the_ported_layers():
     from bitcoinconsensus_tpu_torch.obs import stats
     import bitcoinconsensus_tpu_torch.models.validate  # noqa: F401 (registers)
     import bitcoinconsensus_tpu.models.validate  # noqa: F401
+    import bitcoinconsensus_tpu_torch.cell.replica  # noqa: F401 (registers)
+    import bitcoinconsensus_tpu_torch.cell.router  # noqa: F401
+    import bitcoinconsensus_tpu_torch.models.sigstore  # noqa: F401
+    import bitcoinconsensus_tpu_torch.serving  # noqa: F401
+    import bitcoinconsensus_tpu.cell.replica  # noqa: F401
+    import bitcoinconsensus_tpu.cell.router  # noqa: F401
+    import bitcoinconsensus_tpu.models.sigstore  # noqa: F401
+    import bitcoinconsensus_tpu.serving  # noqa: F401
 
-    later = ("consensus_serving_", "consensus_ingress_",
-             "consensus_sigstore_", "consensus_cell_", "consensus_gauntlet_")
+    later = ("consensus_gauntlet_",)
     ref = [n for n in _reference_required()
            if not n.startswith(later) and n != "consensus_resilience_level"]
     assert set(ref) <= set(stats.required_metrics("cuda"))

@@ -83,6 +83,50 @@ def test_walk_covers_the_parallel_modules():
     assert "parallel" in bitcoinconsensus_tpu_torch.__all__
 
 
+def test_walk_covers_the_serving_cell_and_sigstore_modules():
+    rel = {os.path.relpath(p, REPO) for p in _sources()}
+    for mod in ("serving/__init__.py", "serving/queue.py", "serving/shedding.py",
+                "serving/server.py", "serving/ingress.py", "serving/client.py",
+                "cell/__init__.py", "cell/hashring.py", "cell/sigtier.py",
+                "cell/router.py", "cell/replica.py", "cell/cell.py",
+                "models/sigstore.py"):
+        assert os.path.join("bitcoinconsensus_tpu_torch", mod) in rel
+
+
+def test_serving_and_cell_export_the_reference_names():
+    from bitcoinconsensus_tpu import cell as ref_cell
+    from bitcoinconsensus_tpu import serving as ref_serving
+    from bitcoinconsensus_tpu_torch import cell, serving
+
+    assert set(serving.__all__) == set(ref_serving.__all__)
+    assert set(cell.__all__) == set(ref_cell.__all__)
+    for mod in (serving, cell):
+        for name in mod.__all__:
+            assert getattr(mod, name) is not None, name
+    assert int(bitcoinconsensus_tpu_torch.Error.ERR_OVERLOADED) == \
+        int(bitcoinconsensus_tpu.Error.ERR_OVERLOADED) == 7
+
+
+def test_serving_and_cell_import_with_jax_unavailable():
+    code = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None  # any import of jax now raises
+        sys.path.insert(0, {REPO!r})
+        from bitcoinconsensus_tpu_torch import cell, serving
+        from bitcoinconsensus_tpu_torch.cell import ServingCell, StubReplica
+        from bitcoinconsensus_tpu_torch.models.sigstore import PersistentSigCache
+        from bitcoinconsensus_tpu_torch.serving import ingress
+        assert cell.HashRing(["a", "b"]).lookup("t") in ("a", "b")
+        assert ingress.decode_header(ingress.encode_frame(1, b"xy")[:5]) == (1, 2)
+        assert not any(m == "bitcoinconsensus_tpu" or m.startswith("bitcoinconsensus_tpu.")
+                       for m in sys.modules)
+        print("ok")
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr[-3000:]
+
+
 def test_obs_exports_the_reference_names():
     from bitcoinconsensus_tpu import obs as ref
     from bitcoinconsensus_tpu_torch import obs as port
