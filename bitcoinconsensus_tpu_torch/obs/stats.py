@@ -20,7 +20,9 @@ then re-promoted through a passing probe), `connect_block` on a
 `NativeCoinsView` (a valid block, then its replay, rejected), a dispatch
 with a fault injected (retried clean), the mesh (one sharded dispatch over a 4-entry
 mesh on the device, then one injected device loss that evicts an entry with
-`evict_after=1`), the fast scalar-schedule certificates and, on the
+`evict_after=1`), the gauntlet (`workloads/`: replay seed 5, two blocks
+of two transactions; the 26-case corpus; eight mutants of fuzz seed 1),
+the fast scalar-schedule certificates and, on the
 card, a device capture (`obs/xprof.py`); the flight recorder is armed for
 the last part and triggered once. `--check` exits 1 when a metric of
 `required_metrics(device)` is missing or has no sample, or a value is not
@@ -29,10 +31,10 @@ scalar certificates (`chip_smoke.py` runs the gate after its `[xprof]` and
 `[prover]` phases), the workload leaves that leg out: the metrics it would
 light are the earlier leg's own.
 
-`REQUIRED_METRICS` keeps the reference's names for the layers the port
-has. The group the port has not yet: the adversarial gauntlet
-(`consensus_gauntlet_*`), item 4 of the roadmap's Queue 1, workloads.
-As in the reference, `consensus_cell_retried_frames_total` samples an
+`REQUIRED_METRICS` keeps the reference's names for every layer, the
+adversarial gauntlet's (`consensus_gauntlet_*`, lit by a tiny replay
+stream, the pinned corpus and eight fuzz mutants on the gate's verifier)
+among them. As in the reference, `consensus_cell_retried_frames_total` samples an
 explicit zero: a retried frame needs a frame in flight at the instant an
 upstream dies. The cell leg's stub replicas run on the gate's device.
 `consensus_resilience_level` (the ladder's gauge) is left out for good: the
@@ -126,6 +128,13 @@ REQUIRED_METRICS: Dict[str, Tuple[str, ...]] = {
         "consensus_cell_retried_frames_total",
         "consensus_cell_handoffs_total",
         "consensus_cell_handoff_records_total",
+    ),
+    "gauntlet": (
+        "consensus_gauntlet_corpus_cases_total",
+        "consensus_gauntlet_divergence_total",
+        "consensus_gauntlet_replay_blocks_total",
+        "consensus_gauntlet_fuzz_cases_total",
+        "consensus_gauntlet_shape_seconds",
     ),
     "block": (
         "consensus_blocks_total",
@@ -309,6 +318,23 @@ def run_workload(device: str = "cuda") -> dict:
         res2, verdict2 = sv2.verify_checks_with_verdict(mchecks)
     if not (verdict2 and res2.all()) or sv2.mesh.size != 3:
         raise AssertionError("the mesh did not evict the lost entry and answer again")
+
+    # -- the adversarial gauntlet: a tiny replay stream, the pinned corpus
+    # (per-shape latency histogram) and a handful of fuzz mutants light the
+    # consensus_gauntlet_* family with its zero-divergence samples ---------
+    from ..workloads import ReplayConfig, run_diff_fuzz, run_replay
+    from ..workloads.corpus import run_corpus_check
+
+    grep = run_replay(ReplayConfig(seed=5, n_blocks=2, txs_per_block=2),
+                      verifier=verifier)
+    if not grep["bit_identical"]:
+        raise AssertionError(f"the gauntlet replay: {grep['divergences']}")
+    crep = run_corpus_check(verifier=verifier)
+    if not crep["pinned"]:
+        raise AssertionError(f"the gauntlet corpus: {crep['mismatches']}")
+    frep = run_diff_fuzz(seed=1, n_cases=8, verifier=verifier)
+    if not frep["bit_identical"]:
+        raise AssertionError(f"the gauntlet fuzz: {frep['divergences']}")
 
     # -- the scalar-schedule prover's fast certificates; the GLV range guard's
     # explicit zero samples (the split ran inside its proven bound) ----------

@@ -3,9 +3,11 @@ chip_smoke.py only).
 
 A copy of the builders of `bitcoinconsensus_tpu/utils/blockgen.py`
 (`Wallet`, `FundedOutput`, `build_spend_tx`, `make_funded_view`,
-`build_block` with regtest-grade proof of work) and the script-type mix of
-`bitcoinconsensus_tpu/workloads/replay.py` (`DEFAULT_MIX`), plus
-`mixed_items`, which draws a seeded batch of inputs in that mix.
+`build_block` with regtest-grade proof of work), and the port's one
+definition of the replay script-type mix (`DEFAULT_MIX` and `_pick_kind`,
+those of `bitcoinconsensus_tpu/workloads/replay.py`), which
+`workloads/replay.py` takes from here; plus `mixed_items`, which draws a
+seeded batch of inputs in that mix (chip_smoke's main path).
 
 Signing is deterministic (`crypto/secp_host.py` sign_ecdsa / sign_schnorr),
 so for the same seeds these builders give byte-identical transactions to

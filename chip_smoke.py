@@ -132,7 +132,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    (`library_max_abs_err`).
 7. `[stats]`: the stats gate (`python -m bitcoinconsensus_tpu_torch.obs.stats
    --check --device cuda`, in this process): every metric the ported
-   layers must light has samples (snapshot in the output directory).
+   layers must light has samples, the gauntlet's five among them
+   (snapshot in the output directory).
 8. The mesh (`parallel/mesh.py`), after everything above so that those
    phases run in the state they had before it. `[shard_step]`: the
    epilogue kernel `ss_epilogue_kernel` against its plain version at 2 x
@@ -185,7 +186,27 @@ Phases, each printing its own lines; any failure exits non-zero:
    flight dump, the survivor warm on the moved tenants' inputs, a tombstone
    kept), `cell.route` faults, `no_replica` with both replicas down, and
    both re-promoted through passing known-answer probes.
-10. A `kernels` JSON line (with each path's launches of `verify_tiles`,
+10. The gauntlet (`workloads/`), after everything above, on one verifier
+   on cuda:0, each leg's launches counted around it alone. `[gauntlet]
+   leg=corpus`: the 26 pinned cases on the Python engine, the native core
+   and `verify_batch` (0 mismatches, the native core present, each shape's
+   `consensus_gauntlet_shape_seconds`); `leg=corpus_lanes`: the
+   scalar-edge, fan-out and taproot cases' checks packed by `prep_pack`,
+   `verify_tiles` against `verify_tiles_reference` on the card lane for
+   lane (tolerance 0) and every decided lane against the host oracle;
+   `leg=fuzz`: 500 mutants over the five seeds of
+   `fuzz/gauntlet_seeds.json`, three engines, 0 divergences, cases by
+   mutation kind; `leg=replay`: `run_replay` at config 5's block width
+   (seed 0, 4 blocks of about 400 transactions of up to 15 inputs, half
+   again as mempool batches), bit-identical to the Python oracle (judged
+   in worker processes) and cache-warmed, with inputs/s of the stream;
+   `leg=serve|ingress|overload|cell`: the reference's CI-size stream
+   through a `VerifyServer`, the socket ingress, an overloaded server and
+   a two-stub `ServingCell`, all accounted, sheds explicit (and happening
+   when overloaded). `[gauntlet_chaos]`: the ten trials of
+   `python -m bitcoinconsensus_tpu_torch.workloads --chaos`, one line
+   each, each `held=True` with 0 wrong ACCEPTs.
+11. A `kernels` JSON line (with each path's launches of `verify_tiles`,
    `verdict_checksum`, the epilogue and the SHA-256 kernels; the cell's
    replicas launch in their own processes, read over their control
    channels), the card line, and the result line.
@@ -1441,8 +1462,11 @@ def _stats_phase(rehearse, out_dir) -> None:
         snap = json.load(fh)["metrics"]
     required = stats.required_metrics(dev)
     missing = [n for n in required if not (snap.get(n) or {}).get("samples")]
+    gauntlet = {n: len((snap.get(n) or {}).get("samples", []))
+                for n in stats.REQUIRED_METRICS["gauntlet"]}
     _line("stats", device=dev, rc=rc, required=len(required), missing=len(missing),
           seconds=f"{time.perf_counter() - t0:.2f}",
+          gauntlet_group=json.dumps(gauntlet),
           samples=json.dumps({n: len((snap.get(n) or {}).get("samples", []))
                               for n in required}))
     if rc or missing:
@@ -3041,6 +3065,204 @@ def _cell_phase(items, results, device, rehearse, out_dir) -> dict:
     return counts
 
 
+# The gauntlet's replay leg at config 5's block width (about 3,200 inputs a
+# block batch, half of them again as mempool batches), and its serving legs
+# at the reference's CI size.
+GAUNTLET_REPLAY = dict(seed=0, n_blocks=4, txs_per_block=400, max_inputs=15)
+GAUNTLET_SMALL = dict(seed=1, n_blocks=2, txs_per_block=3)
+GAUNTLET_FUZZ = 500
+# The shapes whose packed lanes `[gauntlet] leg=corpus_lanes` holds the
+# kernel to its plain version on: the GLV/recoder pins, the 20-key fan-out
+# and the taproot script path.
+GAUNTLET_LANE_SHAPES = ("scalar_edge", "multisig_fanout", "taproot_annex")
+
+
+def _hist_by(name, label):
+    """{label value: (sum, count)} of one labelled histogram."""
+    from bitcoinconsensus_tpu_torch.obs import get_registry
+
+    m = get_registry().snapshot().get(name) or {"samples": []}
+    return {s["labels"].get(label, ""): (s.get("sum", 0.0), s.get("count", 0))
+            for s in m["samples"]}
+
+
+def _gauntlet_phase(device, sync, launches_around, path_launches, checksum_launches,
+                    rehearse) -> None:
+    """`[gauntlet]` and `[gauntlet_chaos]`: the port's `workloads/` on one
+    verifier on the device, each leg's launches counted around it alone.
+    - leg=corpus: the 26 pinned cases through the Python engine, the native
+      core and `verify_batch` (0 mismatches, the native core present);
+    - leg=corpus_lanes: the scalar-edge, fan-out and taproot cases' checks
+      (the wire driver's, recorded), packed by `prep_pack`, through
+      `verify_tiles` and `verify_tiles_reference` on the device: equal lane
+      for lane, and every lane the kernel decides equal to the host oracle;
+    - leg=fuzz: 500 mutants over the five CI seeds, three engines, 0
+      divergences;
+    - leg=replay: `run_replay` at config 5's block width, bit-identical to
+      the Python oracle and cache-warmed;
+    - leg=serve, ingress, overload, cell: the reference's CI-size stream
+      through a `VerifyServer`, the socket ingress, an overloaded server
+      (sheds must happen) and a two-stub `ServingCell` on the device, all
+      accounted, sheds explicit only;
+    - `[gauntlet_chaos]`: the ten trials of the CLI's `--chaos`, each held
+      with 0 wrong ACCEPTs."""
+    from bitcoinconsensus_tpu_torch import native_bridge
+    from bitcoinconsensus_tpu_torch.crypto.torch_backend import TorchSecpVerifier
+    from bitcoinconsensus_tpu_torch.models.batch import verify_batch
+    from bitcoinconsensus_tpu_torch.models.sigcache import ScriptExecutionCache, SigCache
+    from bitcoinconsensus_tpu_torch.ops import verify_tiles as VT
+    from bitcoinconsensus_tpu_torch.workloads import (
+        ReplayConfig,
+        run_replay,
+        run_replay_cell,
+        run_replay_serving,
+    )
+    from bitcoinconsensus_tpu_torch.workloads import __main__ as cli
+    from bitcoinconsensus_tpu_torch.workloads.corpus import build_corpus, run_corpus_check
+
+    t_phase = time.perf_counter()
+    v = TorchSecpVerifier(device=device)
+    slo = cli.CPU_SLO_S if rehearse else None
+    bad = []
+
+    def launches(path):
+        """The path's verify_tiles and verdict checksum launches."""
+        return f"{path_launches[path]}/{checksum_launches[path]}"
+
+    # -- the pinned corpus on three engines ----------------------------------
+    shape0 = _hist_by("consensus_gauntlet_shape_seconds", "shape")
+    t0 = time.perf_counter()
+    rep = launches_around("gauntlet_corpus", lambda: run_corpus_check(verifier=v))
+    shape1 = _hist_by("consensus_gauntlet_shape_seconds", "shape")
+    shape_s = {k: round(shape1[k][0] - shape0.get(k, (0.0, 0))[0], 6) for k in shape1}
+    _line("gauntlet", leg="corpus", cases=rep["cases"], mismatches=len(rep["mismatches"]),
+          native_available=rep["native_available"], engines=3,
+          launches_verify_checksum=launches("gauntlet_corpus"),
+          seconds=f"{time.perf_counter() - t0:.3f}",
+          shape_seconds=json.dumps(shape_s))
+    if rep["cases"] != 26 or rep["mismatches"] or not rep["native_available"]:
+        bad.append(f"corpus: {rep['mismatches'][:3]}, native {rep['native_available']}")
+
+    # -- the kernel against its plain version on the corpus's own lanes -------
+    corpus = [c for c in build_corpus() if c.shape in GAUNTLET_LANE_SHAPES]
+    wire = TorchSecpVerifier(device=device)
+    sent = []
+    verify_checks = wire.verify_checks
+
+    def recording(checks):
+        sent.extend(checks)
+        return verify_checks(checks)
+
+    wire.verify_checks = recording
+    os.environ["BITCOINCONSENSUS_TPU_IDX"] = "0"
+    try:
+        verify_batch([c.item for c in corpus], verifier=wire, sig_cache=SigCache(),
+                     script_cache=ScriptExecutionCache())
+    finally:
+        os.environ.pop("BITCOINCONSENSUS_TPU_IDX", None)
+    packed = native_bridge.prep_pack(sent, v._pad(len(sent)))
+    dev = v.to_device(packed)
+    ok_k, nd_k = VT.verify_tiles(*dev)
+    ok_r, nd_r = VT.verify_tiles_reference(*dev)
+    sync()
+    ok_k, nd_k, ok_r, nd_r = (t.cpu() for t in (ok_k, nd_k, ok_r, nd_r))
+    differing = int(((ok_k != ok_r) | (nd_k != nd_r)).sum())
+    decided = [i for i in range(len(sent)) if not bool(nd_k[i])]
+    host_diff = sum(bool(ok_k[i]) != v._host_check(sent[i]) for i in decided)
+    _line("gauntlet", leg="corpus_lanes", shapes=",".join(GAUNTLET_LANE_SHAPES),
+          cases=len(corpus), lanes=len(sent), padded=int(ok_k.numel()),
+          kernel_ok=int(ok_k[:len(sent)].sum()), plain_ok=int(ok_r[:len(sent)].sum()),
+          kernel_needs=int(nd_k[:len(sent)].sum()), tolerance=0,
+          lanes_differing=differing, decided_vs_host_differing=host_diff)
+    if differing or host_diff or not sent:
+        bad.append(f"corpus_lanes: {differing} lanes differ, {host_diff} against the host")
+
+    # -- the differential fuzz over the CI seeds -------------------------------
+    n_fuzz = 10 if rehearse else GAUNTLET_FUZZ
+    t0 = time.perf_counter()
+    rep = launches_around("gauntlet_fuzz",
+                          lambda: cli.run_fuzz_leg(v, cli.ci_fuzz_seeds(), n_fuzz, ceil=True))
+    _line("gauntlet", leg="fuzz", cases=rep["cases"], seeds=len(rep["seeds"]),
+          engines=rep["engines"], divergences=len(rep["divergences"]),
+          mutations=json.dumps(rep["mutations"]),
+          launches_verify_checksum=launches("gauntlet_fuzz"),
+          seconds=f"{time.perf_counter() - t0:.3f}")
+    if rep["divergences"] or rep["engines"] != 3 or rep["cases"] < n_fuzz:
+        bad.append(f"fuzz: {rep['divergences'][:2]}")
+
+    # -- the mainnet-shaped replay through the stream --------------------------
+    cfg = ReplayConfig(**(dict(seed=3, n_blocks=2, txs_per_block=2, max_inputs=2)
+                          if rehearse else GAUNTLET_REPLAY))
+    t0 = time.perf_counter()
+    rep = launches_around("gauntlet_replay", lambda: run_replay(cfg, verifier=v))
+    _line("gauntlet", leg="replay", config=json.dumps({k: getattr(cfg, k) for k in (
+              "seed", "n_blocks", "txs_per_block", "max_inputs")}),
+          blocks=rep["blocks"], txs=rep["txs"], inputs=rep["items"],
+          batches=rep["batches"], mempool_overlap=rep["mempool_overlap_items"],
+          expected_warm_hits=rep["expected_warm_hits"],
+          script_cache_hits=rep["script_cache_hits"], sig_cache_hits=rep["sig_cache_hits"],
+          bit_identical=rep["bit_identical"], warmed=rep["warmed"],
+          stream_s=f"{rep['stream_s']:.4f}",
+          inputs_per_s=f"{rep['items'] / rep['stream_s']:.1f}",
+          generate_s=f"{rep['generate_s']:.2f}", oracle_s=f"{rep['oracle_s']:.2f}",
+          oracle_workers=rep["oracle_workers"],
+          launches_verify_checksum=launches("gauntlet_replay"),
+          seconds=f"{time.perf_counter() - t0:.2f}")
+    if not (rep["bit_identical"] and rep["warmed"]):
+        bad.append(f"replay: {rep['divergences'][:3]}, warmed {rep['warmed']}")
+
+    # -- the serving surfaces ---------------------------------------------------
+    small = ReplayConfig(**GAUNTLET_SMALL)
+    legs = (
+        ("serve", lambda: run_replay_serving(small, mode="serve", verifier=v,
+                                             slo_deadline_s=slo)),
+        ("ingress", lambda: run_replay_serving(small, mode="ingress", verifier=v,
+                                               slo_deadline_s=slo)),
+        ("overload", lambda: run_replay_serving(small, mode="serve", overload=True,
+                                                verifier=v, slo_deadline_s=slo)),
+        ("cell", lambda: run_replay_cell(small, n_replicas=2, device=str(device),
+                                         slo_deadline_s=slo)),
+    )
+    for leg, fn in legs:
+        t0 = time.perf_counter()
+        rep = launches_around(f"gauntlet_{leg}", fn)
+        held = rep["bit_identical"] and rep["all_accounted"] and \
+            rep["sheds_explicit_only"] and (leg != "overload" or rep["sheds_happened"])
+        _line("gauntlet", leg=leg, items=rep["items"], settled=rep["settled"],
+              sheds=rep["sheds"], errors=len(rep["errors"]),
+              hung_threads=rep["hung_threads"], bit_identical=rep["bit_identical"],
+              all_accounted=rep["all_accounted"],
+              sheds_explicit_only=rep["sheds_explicit_only"],
+              sheds_happened=rep.get("sheds_happened", "n/a"),
+              launches_verify_checksum=launches(f"gauntlet_{leg}"), held=held,
+              seconds=f"{time.perf_counter() - t0:.2f}")
+        if not held:
+            bad.append(f"{leg}: {rep['errors'][:3]} {rep['divergences'][:3]}")
+
+    # -- the gauntlet fault sweep ---------------------------------------------
+    t0 = time.perf_counter()
+    n0 = VT.verify_tiles.launches
+    sweep = cli.run_gauntlet_sweep(0, fuzz_cases=n_fuzz, verifier=v)
+    sync()
+    for t in sweep["trials"]:
+        extra = {k: t[k] for k in cli.HARD_KEYS if k in t}
+        _line("gauntlet_chaos", trial=t["trial"], **extra,
+              fired=json.dumps(t.get("fired", {})), wrong_accepts=t["wrong_accepts"],
+              held=t["held"])
+        if not t["held"]:
+            bad.append(f"chaos {t['trial']}")
+    _line("gauntlet_chaos", trials=len(sweep["trials"]),
+          held=sum(t["held"] for t in sweep["trials"]),
+          wrong_accepts=sum(t["wrong_accepts"] for t in sweep["trials"]),
+          launches=VT.verify_tiles.launches - n0,
+          seconds=f"{time.perf_counter() - t0:.2f}")
+    _line("gauntlet_time", seconds=f"{time.perf_counter() - t_phase:.2f}")
+    if len(sweep["trials"]) != 10:
+        bad.append(f"chaos: {len(sweep['trials'])} trials, not 10")
+    if bad:
+        _fail("[gauntlet]: " + "; ".join(bad))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rehearse-cpu", action="store_true",
@@ -3591,6 +3813,11 @@ def main() -> int:
     path_launches["cell_replica_processes"] = cell_counts["cell_replicas"][0]
     checksum_launches["cell_replica_processes"] = cell_counts["cell_replicas"][1]
     _line("serving_phases", seconds=f"{time.perf_counter() - t_serving:.1f}")
+
+    # -- the gauntlet (`workloads/`), after every phase above, so that those
+    # run in the process state they had before this slice ---------------------
+    _gauntlet_phase(device, sync, launches_around, path_launches, checksum_launches,
+                    rehearse)
     kernels.insert(2, {
         "name": "shard_epilogue", "route": "cuda", "source": MESH_SOURCE,
         "replaces": "bitcoinconsensus_tpu/parallel/mesh.py:201 (make_sharded_step's "

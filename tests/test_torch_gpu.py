@@ -876,3 +876,48 @@ def test_cell_entries_default_to_the_card_and_raise_without_it(monkeypatch, tmp_
         StubReplica()
     with pytest.raises(RuntimeError, match="CUDA"):
         ServingCell(stub=True, root_dir=str(tmp_path))
+
+
+# -- the gauntlet (workloads/) on the card ---------------------------------------
+
+
+@pytest.mark.gpu
+def test_gauntlet_corpus_pins_hold_on_cuda():
+    """The 26 pinned cases on the three engines with the batch leg on cuda:0
+    (the runner's default): 0 mismatches, the native core present, and the
+    batch leg launched the verify kernel."""
+    _need_cuda()
+    from bitcoinconsensus_tpu_torch.workloads.corpus import run_corpus_check
+
+    rep = run_corpus_check()
+    assert rep["pinned"], rep["mismatches"]
+    assert rep["cases"] == 26 and rep["native_available"]
+    assert rep["device"] == "cuda:0" and rep["batch_launches"] > 0
+
+
+@pytest.mark.gpu
+def test_gauntlet_diff_fuzz_on_cuda_zero_divergence():
+    _need_cuda()
+    from bitcoinconsensus_tpu_torch.workloads import run_diff_fuzz
+
+    VT.verify_tiles.launches = 0
+    rep = run_diff_fuzz(seed=1, n_cases=12)
+    torch.cuda.synchronize()
+    assert rep["bit_identical"], rep["divergences"]
+    assert rep["cases"] == 12 and rep["engines"] == 3
+    assert VT.verify_tiles.launches > 0
+
+
+@pytest.mark.gpu
+def test_gauntlet_tiny_replay_on_cuda_is_bit_identical_and_warm():
+    _need_cuda()
+    from bitcoinconsensus_tpu_torch.workloads import ReplayConfig, run_replay
+
+    VT.verify_tiles.launches = VC.verdict_checksum.launches = 0
+    rep = run_replay(ReplayConfig(seed=3, n_blocks=2, txs_per_block=2, max_inputs=2))
+    torch.cuda.synchronize()
+    assert rep["bit_identical"], rep["divergences"]
+    assert rep["warmed"] and rep["script_cache_hits"] >= rep["expected_warm_hits"] > 0
+    assert rep["device"] == "cuda:0"
+    assert VT.verify_tiles.launches > 0
+    assert VC.verdict_checksum.launches == VT.verify_tiles.launches

@@ -403,7 +403,7 @@ def test_script_vectors_native_exact(core):
     Python engine (tests/test_native_interp.py:54's replay for the port)."""
     from test_vectors_json import iter_script_tests, parse_flags
 
-    from bitcoinconsensus_tpu.utils.script_asm import parse_asm
+    from bitcoinconsensus_tpu_torch.utils.script_asm import parse_asm
 
     n_run, failures = 0, []
     for idx, test, witness, value, pos in iter_script_tests():

@@ -416,7 +416,9 @@ def test_stats_gate_passes_on_the_cpu(monkeypatch, capsys):
         names = stats.REQUIRED_METRICS[group]
         assert names and all(n.startswith(prefix) for n in names)
         assert set(names) <= set(cpu)
-    assert not [n for n in cuda if n.startswith("consensus_gauntlet_")]
+    gauntlet = stats.REQUIRED_METRICS["gauntlet"]
+    assert len(gauntlet) == 5 and set(gauntlet) <= set(cpu)
+    assert all(n.startswith("consensus_gauntlet_") for n in gauntlet)
 
 
 # -- which of the reference's resilience metrics the port registers -------------------
@@ -470,8 +472,7 @@ def _reference_required():
 
 def test_stats_gate_requires_the_reference_metrics_of_the_ported_layers():
     """Every name of the reference's `REQUIRED_METRICS` is required by the
-    port's gate, but the groups of modules not ported yet and the ladder's
-    gauge; and every metric both registries hold has the same kind and
+    port's gate, the gauntlet's among them, but the ladder's gauge; and every metric both registries hold has the same kind and
     label names."""
     from bitcoinconsensus_tpu_torch.obs import stats
     import bitcoinconsensus_tpu_torch.models.validate  # noqa: F401 (registers)
@@ -485,9 +486,10 @@ def test_stats_gate_requires_the_reference_metrics_of_the_ported_layers():
     import bitcoinconsensus_tpu.models.sigstore  # noqa: F401
     import bitcoinconsensus_tpu.serving  # noqa: F401
 
-    later = ("consensus_gauntlet_",)
-    ref = [n for n in _reference_required()
-           if not n.startswith(later) and n != "consensus_resilience_level"]
+    import bitcoinconsensus_tpu_torch.workloads  # noqa: F401 (registers)
+    import bitcoinconsensus_tpu.workloads  # noqa: F401
+
+    ref = [n for n in _reference_required() if n != "consensus_resilience_level"]
     assert set(ref) <= set(stats.required_metrics("cuda"))
     port, jref = t_registry(), j_registry()
     shared = set(port.names()) & set(jref.names())

@@ -93,6 +93,44 @@ def test_walk_covers_the_serving_cell_and_sigstore_modules():
         assert os.path.join("bitcoinconsensus_tpu_torch", mod) in rel
 
 
+def test_walk_covers_the_workloads_modules():
+    rel = {os.path.relpath(p, REPO) for p in _sources()}
+    for mod in ("workloads/__init__.py", "workloads/__main__.py",
+                "workloads/corpus.py", "workloads/diff_fuzz.py",
+                "workloads/replay.py", "utils/refbridge.py", "utils/script_asm.py"):
+        assert os.path.join("bitcoinconsensus_tpu_torch", mod) in rel
+
+
+def test_workloads_export_the_reference_names():
+    from bitcoinconsensus_tpu import workloads as ref
+    from bitcoinconsensus_tpu_torch import workloads as port
+
+    assert port.__all__ == ref.__all__
+    for name in port.__all__:
+        assert getattr(port, name) is not None, name
+
+
+def test_workloads_import_with_jax_unavailable():
+    code = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None  # any import of jax now raises
+        sys.path.insert(0, {REPO!r})
+        from bitcoinconsensus_tpu_torch import workloads
+        from bitcoinconsensus_tpu_torch.workloads import __main__ as cli
+        from bitcoinconsensus_tpu_torch.workloads import corpus, diff_fuzz, replay
+        from bitcoinconsensus_tpu_torch.utils import refbridge, script_asm
+        assert len(corpus.build_corpus()) == 26
+        assert script_asm.parse_asm("1 DUP") == bytes([0x51, 0x76])
+        assert len(cli.ci_fuzz_seeds()) == 5
+        assert not any(m == "bitcoinconsensus_tpu" or m.startswith("bitcoinconsensus_tpu.")
+                       for m in sys.modules)
+        print("ok")
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr[-3000:]
+
+
 def test_serving_and_cell_export_the_reference_names():
     from bitcoinconsensus_tpu import cell as ref_cell
     from bitcoinconsensus_tpu import serving as ref_serving
