@@ -14,7 +14,9 @@ complete adds, `double_scalar_mult_glv`, `mxu.fe_mul_onehot`,
 `jax_backend.verify_kernel`) are not registered; ROADMAP.md lists them with
 their modules. The reference's `jax_backend.verdict_checksum` is the port's
 `cuda.verdict_checksum`, the launch contract and body of
-`csrc/verdict_checksum.cu`; the device half of the reference's
+`csrc/verdict_checksum.cu`, and rides the verifier's dispatch as the
+epilogue of the checked verify launch, `cuda.verify_tiles_checked`, which
+carries the same sums per warp; the device half of the reference's
 `parallel/mesh.py::make_sharded_step` (each shard's checksum pair and
 failure count) is `cuda.shard_step`, the launch contract and body of
 `csrc/shard_step.cu`. The reference's `sha256.compress` and
@@ -117,6 +119,41 @@ def _verify_tiles_body() -> interval.Report:
     return kernel_check.check_contract(
         VT.VERIFY_TILES_CONTRACT, vt_specs(B), "cuda.verify_tiles.body",
         in_bounds=VT_FLAG_BOUNDS, out_within=[[(0, 1)] * 2])
+
+
+# The checked launch's widths: a full dispatch, a ragged one (its last block
+# 44 lanes), one lane short of a dispatch (its last warp 31 lanes), and the
+# 4 x 16 mesh layout's shard (one block whose second warp lies wholly past
+# the lanes and writes nothing).
+VERIFY_TILES_CHECKED_WIDTHS = (8192, 4908, 8191, 16)
+EPILOGUE_WARP_ROWS = [(0, VT.WARP), (0, VT.CHECKSUM_MOD * VT.WARP), (0, VT.WARP)]
+
+
+def _verify_tiles_checked() -> interval.Report:
+    """`vt_verify_tiles_checked`'s launch contract at every width of
+    VERIFY_TILES_CHECKED_WIDTHS (its verdict bytes and each warp's three
+    partials written once), and its epilogue's int32 arithmetic proven on a
+    full block at the first and at the last block of the widest launch:
+    a warp's count and failures inside [0, 32], its weighted sum inside
+    [0, 32 * 251]. The lane program's own proof is `cuda.verify_tiles.body`."""
+    rep = interval.Report(name="cuda.verify_tiles_checked")
+    for B in VERIFY_TILES_CHECKED_WIDTHS:
+        kernel_check.check_contract(
+            VT.VERIFY_TILES_CHECKED_CONTRACT,
+            vt_specs(B) + [interval.TensorSpec((B,), torch.bool)],
+            f"cuda.verify_tiles_checked[{B}]", prove_body=False, report=rep)
+        rep.notes.append(f"contract checked at {B} lanes")
+    threads = VT.VERIFY_TILES_CHECKED_CONTRACT.threads
+    lanes = [interval.TensorSpec((threads,), torch.bool)] * 3
+    for b in (0, VT.MAX_CHECKED_LANES // threads - 1):
+        name = f"cuda.verify_tiles_checked.epilogue[block {b}]"
+        outs = interval.prove(
+            lambda ok, needs, lv, b=b: VT.epilogue_block((b,), ok, needs, lv), lanes,
+            [interval.from_bounds(s, (0, 1)) for s in lanes], rep, name)
+        for o in outs or []:
+            interval.check_within(rep, f"{name}/out", o, EPILOGUE_WARP_ROWS)
+        rep.notes.append(f"epilogue proven inside int32 at block {b}")
+    return rep
 
 
 # One lane, a full dispatch, and the most lanes the kernel takes, where the
@@ -255,6 +292,11 @@ def _specs() -> List[KernelSpec]:
         KernelSpec("cuda.verify_tiles", _verify_tiles_contract,
                    note="launch contract of csrc/verify_tiles.cu at "
                         f"{' and '.join(map(str, VERIFY_TILES_WIDTHS))} lanes"),
+        KernelSpec("cuda.verify_tiles_checked", _verify_tiles_checked,
+                   note="launch contract of csrc/verify_tiles.cu's checked "
+                        "launch at " + ", ".join(map(str, VERIFY_TILES_CHECKED_WIDTHS))
+                        + " lanes: the verdict bytes and the per-warp partials "
+                        "written once, the epilogue's sums inside int32"),
         KernelSpec("cuda.verdict_checksum", _verdict_checksum,
                    note="launch contract and int32 body of "
                         "csrc/verdict_checksum.cu at "

@@ -143,8 +143,7 @@ def _control_reply(store, obj: dict) -> dict:
     if cmd == "stats":
         import torch
 
-        from ..ops.verdict_checksum import verdict_checksum
-        from ..ops.verify_tiles import verify_tiles
+        from ..ops.verify_tiles import verify_tiles_checked
 
         return {
             "ok": True,
@@ -153,8 +152,10 @@ def _control_reply(store, obj: dict) -> dict:
             "hits": store._hits_since_open,
             "pid": os.getpid(),
             "cuda_initialized": torch.cuda.is_initialized(),
-            "verify_tiles_launches": verify_tiles.launches,
-            "checksum_launches": verdict_checksum.launches,
+            # The dispatches' checked verify launches, and those of them
+            # that carried the verdict checksum's partials.
+            "verify_tiles_launches": verify_tiles_checked.launches,
+            "checksum_launches": verify_tiles_checked.checksummed,
         }
     if cmd == "absorb":
         from .sigtier import absorb_handoff

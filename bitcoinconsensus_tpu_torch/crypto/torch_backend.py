@@ -17,8 +17,8 @@ endomorphism and packs each lane as 4 x 32 bytes plus 6 flags: in one call
 of the native host core (`native_bridge.prep_pack`) by default, or with
 `engine="python"` through `_prep_lanes` / `_pack_lanes`, the spec the core
 is held to byte for byte. The device side is
-`ops/verify_tiles.verify_tiles`: the hand-written CUDA kernel on a card,
-its plain torch version on the CPU. Lanes the kernel
+`ops/verify_tiles.verify_tiles_checked`: the hand-written CUDA kernel on a
+card, its plain torch version on the CPU. Lanes the kernel
 flags `needs_host` (an equal-points case of its fast additions, reached
 only by crafted scalars) are resolved exactly by the host oracle
 `crypto/secp_host.py` (or its native counterpart, `NativeSecp`); that
@@ -26,13 +26,16 @@ fixup is part of the kernel's contract.
 
 Every dispatch is guarded, as in the reference (`resilience/`): it goes
 through the verifier's in-flight queue, which stages the packed lanes,
-writes known-answer sentinel lanes into their pad region, launches the
-verify kernel and then the verdict checksum kernel
-(`ops/verdict_checksum.py`; BITCOINCONSENSUS_TPU_CHECKSUM=0 leaves it out),
-and at settle validates the verdict buffers, the sentinels and the
-checksum before a verdict is returned. A failed guard or launch is
-retried on the same kernel within the budget (`resilience/degrade.py`)
-and then raises `DispatchFailed`; nothing falls back to the host.
+writes known-answer sentinel lanes into their pad region, and launches the
+checked verify kernel (`ops/verify_tiles.verify_tiles_checked`): one
+kernel that writes the verdicts and, as its epilogue, the verdict
+checksum's per-warp partials (the sums of `ops/verdict_checksum.py`;
+BITCOINCONSENSUS_TPU_CHECKSUM=0 leaves the partials out, the lane program
+alone in the same launch). At settle it validates the verdict buffers,
+the sentinels and the checksum before a verdict is returned. A failed
+guard or launch is retried on the same kernel within the budget
+(`resilience/degrade.py`) and then raises `DispatchFailed`; nothing falls
+back to the host.
 
 Telemetry, as in the reference (`obs/`): checks by kind, dispatches by
 backend (`cuda` for the kernel, `torch` for the plain version on the CPU),
@@ -60,8 +63,7 @@ from ..ops.limbs import P_INT
 from ..ops.regions import region_scope
 from ..ops.curve import G_X
 from ..ops.sha256 import bip340_challenge
-from ..ops.verdict_checksum import verdict_checksum
-from ..ops.verify_tiles import verify_tiles
+from ..ops.verify_tiles import epilogue_sums, verify_tiles_checked
 from ..resilience import faults as _faults
 from ..resilience import guards as _guards
 from ..resilience.degrade import DispatchResilience
@@ -312,9 +314,10 @@ class TorchSecpVerifier:
     drivers pack them inside the native session). Both go through the
     in-flight queue (`resilience/inflight.py`): a dispatch stages the lanes
     (pinned on a card), writes the sentinel lanes into the staged pad,
-    uploads with non-blocking copies, launches the verify kernel and the
-    checksum kernel on the device's current stream and queues the copies of
-    the results back, all without waiting; a settle waits once, then holds
+    uploads with non-blocking copies, makes the one checked verify launch
+    (verdicts and checksum partials) on the device's current stream and
+    queues the copies of the results back, all without waiting; a settle
+    waits once, then holds
     the padded verdicts to `validate_verdict`, the sentinels and the
     checksum, retrying a failed dispatch within the budget and then raising
     `DispatchFailed`. Settling a handle again returns the same verdicts.
@@ -373,13 +376,12 @@ class TorchSecpVerifier:
         )
         # Set-up, once per verifier, so that a verify call's time is the
         # verify's own: the sentinel templates' host EC math; on a card, the
-        # kernels built or loaded, the G table uploaded and the modules
-        # loaded by one launch of each over pad lanes.
+        # kernel built or loaded, the G table uploaded and the module loaded
+        # by one checked launch over pad lanes.
         _guards._sentinel_templates()
         if self.device.type == "cuda":
-            ok, _needs = verify_tiles(*self.to_device(self._pack_lanes([])))
-            if self._checksum:
-                verdict_checksum(ok)
+            verify_tiles_checked(*self.to_device(self._pack_lanes([])),
+                                 partials=self._checksum)
             torch.cuda.synchronize(self.device)
 
     @property
@@ -530,31 +532,28 @@ class TorchSecpVerifier:
         return sset
 
     def _launch_ticket(self, host, n: int, sset):
-        """Upload a ticket's staged lanes and launch the verify kernel, then
-        the checksum kernel over its `ok`, and queue the copies of both
-        back, with nothing synchronised: on a card the uploads are
-        non-blocking copies from pinned memory and everything goes on the
-        device's current stream. Returns (the launch, the checksum tensor
-        or None)."""
+        """Upload a ticket's staged lanes, make the one checked verify
+        launch (the verdicts and, with the checksum on, its per-warp
+        partials) and queue the copies back, with nothing synchronised: on
+        a card the uploads are non-blocking copies from pinned memory and
+        everything goes on the device's current stream. Returns (the
+        launch, the (3, n_warps) partials or None)."""
         _faults.maybe_raise("torch_backend.dispatch")
         self.stats["dispatches"] += 1
         self._note_dispatch(int(host[0].shape[0]), n,
                             "cuda" if self.device.type == "cuda" else "torch")
         with region_scope("dispatch"):
             if self.device.type != "cuda":
-                ok, needs = verify_tiles(*host)
-                aux = verdict_checksum(ok.contiguous()) if self._checksum else None
-                return _Launched(ok, needs), aux
+                ok, needs, parts = verify_tiles_checked(*host, partials=self._checksum)
+                return _Launched(ok, needs), parts
             dev = tuple(t.to(self.device, non_blocking=True) for t in host)
             stream = torch.cuda.current_stream(self.device)
             events = (torch.cuda.Event(enable_timing=True),
                       torch.cuda.Event(enable_timing=True))
             events[0].record(stream)
-            ok, needs = verify_tiles(*dev)
+            ok, needs, parts = verify_tiles_checked(*dev, partials=self._checksum)
             events[1].record(stream)
-            outs = [ok, needs]
-            if self._checksum:
-                outs.append(verdict_checksum(ok))
+            outs = [ok, needs] + ([parts] if parts is not None else [])
             back = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in outs]
             for h, t in zip(back, outs):
                 h.copy_(t, non_blocking=True)
@@ -589,8 +588,9 @@ class TorchSecpVerifier:
         """One wait for a launch's copies, then the guards over its padded
         buffers: `validate_verdict` on `ok` (after the `torch_backend.verdict`
         fault hook) and `needs`, the sentinels of `sset`, and the device
-        checksum `aux` against the sums of the `ok` received. Returns padded
-        (ok, needs) bool arrays; raises `VerdictAnomaly`."""
+        checksum, the warps' partials `aux` summed here, against the sums
+        of the `ok` received. Returns padded (ok, needs) bool arrays;
+        raises `VerdictAnomaly`."""
         with region_scope("settle"):
             if res.done is not None:
                 with accumulate(self.stats, "device_wait_s"):
@@ -600,8 +600,8 @@ class TorchSecpVerifier:
             needs = _guards.validate_verdict(res.needs.numpy(), padded, self._SITE)
             _guards.check_sentinels(sset, ok, needs, self._SITE)
             if aux is not None:
-                sums = aux.numpy()
-                _guards.check_checksum((int(sums[0]), int(sums[1])), ok, self._SITE)
+                count, wsum, _fails = epilogue_sums(aux)
+                _guards.check_checksum((count, wsum), ok, self._SITE)
             if res.events is not None:
                 self.stats["kernel_ms"] += res.events[0].elapsed_time(res.events[1])
             return ok, needs

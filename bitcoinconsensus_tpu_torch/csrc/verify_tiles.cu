@@ -60,8 +60,11 @@
 //
 // Built by `ops/_build.py` with nvcc into a shared library whose C entry
 // point `vt_verify_tiles` launches on the caller's stream and returns
-// cudaGetLastError(); `vt_field_op` runs the field layer alone and
-// `vt_recode` the scalar recoder alone.
+// cudaGetLastError(); `vt_verify_tiles_checked` launches the same lane
+// program with an epilogue (the verdicts as bytes and the verdict
+// checksum's per-warp partials, in the one launch the verifier's dispatch
+// makes); `vt_field_op` runs the field layer alone and `vt_recode` the
+// scalar recoder alone.
 //
 // Schedule hooks (`VT_TRACE`). A host build may define VT_TRACE(ev, a, b, c,
 // d) before including this file (`csrc/verify_tiles_host.cpp`): the lane
@@ -1053,6 +1056,31 @@ VT_FN void verify_lane_slots(const uint32_t* w, int32_t want_odd,
   *needs_out = needs ? 1 : 0;
 }
 
+// ---------------------------------------------------------------------------
+// The checked launch's epilogue (`vt_verify_checked_kernel`). Lane i of a
+// launch of n lanes adds three int32 terms to its warp's partials, from the
+// verdicts the lane program just stored:
+//
+//     count = ok        wsum = ok · (i % 251 + 1)      fails = live ∧ ¬ok ∧ ¬needs
+//
+// the verdict checksum pair of `verdict_checksum.cu` and the failure count
+// of `shard_step.cu`, with i the lane's index within the launch (each shard
+// of the mesh is a launch of its own, so the weights restart at every
+// shard, as the reference's `local_step` checksums a shard's slice). A lane
+// at or past n, or a launch without `live`, adds 0 where it has no value.
+// A warp's sum stays below 32 · 251, inside int32.
+#define VT_CHECK_MOD 251
+#define VT_CHECKED_MAX_LANES (1 << 23)  // the summed weights stay inside int32
+
+VT_FN void vt_epilogue_terms(int i, int n, int32_t ok, int32_t needs,
+                             const uint8_t* live, int32_t t[3]) {
+  const int32_t in = i < n;
+  const int32_t v = in & (ok != 0);
+  t[0] = v;
+  t[1] = v * (i % VT_CHECK_MOD + 1);
+  t[2] = (live != nullptr && in) ? (int32_t)(live[i] != 0 && !v && needs == 0) : 0;
+}
+
 #ifndef __CUDACC__
 // The host entry of the lane program: its slots in a local array.
 VT_FN void verify_lane(const uint32_t* w, int32_t want_odd, int32_t parity_req,
@@ -1129,6 +1157,105 @@ extern "C" int vt_verify_tiles(const int64_t* a) {
         (const int32_t*)VT_PTR(a, 4), (const int32_t*)VT_PTR(a, 5),
         (const uint8_t*)VT_PTR(a, 6), (const uint32_t*)VT_PTR(a, 7),
         (int32_t*)VT_PTR(a, 8), n);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The checked launch: the lane program above, unchanged, then its epilogue,
+// so that one launch carries a dispatch's verdicts and its guard's sums.
+// Each lane stores its verdicts as bytes (0 or 1) into the caller's bool
+// buffers `ok_out` and `needs_out` (on the mesh, views of a card's group
+// buffers); given `partials`, a (3, n_warps) int32 buffer with n_warps =
+// ceil(n / 32), each warp sums its lanes' `vt_epilogue_terms` with
+// shuffles and its lane 0 writes column `warp` of the three rows once. No
+// shared memory, barrier or atomic is added: concurrent launches (the
+// mesh's shard streams, the in-flight queue) share nothing, and the host
+// sums a launch's warps. Threads past n skip the lane program but reach the
+// shuffles with zeros, so every shuffle runs under a full mask; a warp
+// wholly past n (the last block's second warp when n % 64 is 1..32) writes
+// nothing.
+__global__ void __launch_bounds__(VT_THREADS, 1)
+    vt_verify_checked_kernel(const uint32_t* __restrict__ fields,
+                             const int32_t* __restrict__ want_odd,
+                             const int32_t* __restrict__ parity_req,
+                             const int32_t* __restrict__ has_t2,
+                             const int32_t* __restrict__ neg1,
+                             const int32_t* __restrict__ neg2,
+                             const uint8_t* __restrict__ valid,
+                             const uint32_t* __restrict__ gtab,
+                             uint8_t* __restrict__ ok_out,
+                             uint8_t* __restrict__ needs_out,
+                             const uint8_t* __restrict__ live,
+                             int32_t* __restrict__ partials, int n) {
+  extern __shared__ uint32_t vt_smem[];
+  const int i = blockIdx.x * VT_THREADS + threadIdx.x;
+  int32_t ok = 0, needs = 0;
+  if (i < n) {  // no early return: the whole warp reaches the epilogue
+    uint32_t w[32];
+    const uint4* src = reinterpret_cast<const uint4*>(fields + 32 * (size_t)i);
+    VT_UNROLL for (int k = 0; k < 8; k++) {
+      uint4 q = src[k];
+      w[4 * k] = q.x;
+      w[4 * k + 1] = q.y;
+      w[4 * k + 2] = q.z;
+      w[4 * k + 3] = q.w;
+    }
+    vt_slots s = {vt_smem + threadIdx.x, VT_THREADS};
+    verify_lane_slots(w, want_odd[i], parity_req[i], has_t2[i], neg1[i],
+                      neg2[i], valid[i], gtab, s, &ok, &needs);
+    ok_out[i] = (uint8_t)ok;
+    needs_out[i] = (uint8_t)needs;
+  }
+  if (partials == nullptr) return;  // the same for every thread of the launch
+  int32_t t[3];
+  vt_epilogue_terms(i, n, ok, needs, live, t);
+  VT_UNROLL for (int off = 16; off > 0; off >>= 1) {
+    t[0] += __shfl_down_sync(0xffffffffu, t[0], off);
+    t[1] += __shfl_down_sync(0xffffffffu, t[1], off);
+    t[2] += __shfl_down_sync(0xffffffffu, t[2], off);
+  }
+  const int warp = i >> 5, n_warps = (n + 31) >> 5;
+  if ((threadIdx.x & 31) == 0 && warp < n_warps) {
+    partials[warp] = t[0];
+    partials[n_warps + warp] = t[1];
+    partials[2 * n_warps + warp] = t[2];
+  }
+}
+
+// Launch contract (VERIFY_TILES_CHECKED_CONTRACT): as `vt_verify_tiles`'s,
+// one 64-thread block per 64 lanes and VT_SMEM_BYTES of dynamic shared
+// memory, with 0 <= n <= VT_CHECKED_MAX_LANES and both verdict buffers
+// given; any other launch is refused. Arguments: fields, want_odd,
+// parity_req, has_t2, neg1, neg2, valid, gtab, ok_out, needs_out, live (or
+// 0), partials (or 0), n, grid, threads, shared bytes, stream.
+extern "C" int vt_verify_tiles_checked(const int64_t* a) {
+  static bool smem_raised[64];
+  const int64_t n = a[12];
+  const int64_t grid = a[13], threads = a[14], smem_bytes = a[15];
+  if (threads != VT_THREADS || n < 0 || n > VT_CHECKED_MAX_LANES ||
+      grid != (n + VT_THREADS - 1) / VT_THREADS || smem_bytes != VT_SMEM_BYTES ||
+      a[8] == 0 || a[9] == 0)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!smem_raised[dev]) {
+    err = cudaFuncSetAttribute(vt_verify_checked_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               VT_SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    smem_raised[dev] = true;
+  }
+  if (n > 0) {
+    vt_verify_checked_kernel<<<(unsigned)grid, VT_THREADS, VT_SMEM_BYTES,
+                               (cudaStream_t)VT_PTR(a, 16)>>>(
+        (const uint32_t*)VT_PTR(a, 0), (const int32_t*)VT_PTR(a, 1),
+        (const int32_t*)VT_PTR(a, 2), (const int32_t*)VT_PTR(a, 3),
+        (const int32_t*)VT_PTR(a, 4), (const int32_t*)VT_PTR(a, 5),
+        (const uint8_t*)VT_PTR(a, 6), (const uint32_t*)VT_PTR(a, 7),
+        (uint8_t*)VT_PTR(a, 8), (uint8_t*)VT_PTR(a, 9),
+        (const uint8_t*)VT_PTR(a, 10), (int32_t*)VT_PTR(a, 11), (int)n);
   }
   return (int)cudaGetLastError();
 }

@@ -8,6 +8,8 @@
 //                   `signed_digit`, as `vt_recode` runs them on the card.
 //   vt_host_trace   one lane through `verify_lane`: its (ok, needs_host) and
 //                   the hook events, five int32 each (event, a, b, c, d).
+//   vt_host_epilogue  the checked launch's per-warp partials from a
+//                   launch's verdicts, through `vt_epilogue_terms`.
 
 #include <stddef.h>
 #include <stdint.h>
@@ -45,6 +47,25 @@ extern "C" void vt_host_recode(const uint32_t* words, int32_t* mag,
           (int32_t)signed_digit(b, carries, wdw, neg);
       sgn[VT_SGLV_WINDOWS * (size_t)i + wdw] = (int32_t)neg;
     }
+  }
+}
+
+// The checked launch's epilogue on the host: (n,) int32 ok, needs and (or
+// null) uint8 live -> the (3, ceil(n / 32)) int32 per-warp partials, each
+// warp's lanes summed through `vt_epilogue_terms`, as the card's shuffles
+// sum them (integer sums: the order does not matter).
+extern "C" void vt_host_epilogue(const int32_t* ok, const int32_t* needs,
+                                 const uint8_t* live, int32_t* partials,
+                                 int n) {
+  const int n_warps = (n + 31) / 32;
+  for (int w = 0; w < n_warps; w++) {
+    int32_t sum[3] = {0, 0, 0};
+    for (int i = 32 * w; i < 32 * w + 32; i++) {
+      int32_t t[3];
+      vt_epilogue_terms(i, n, i < n ? ok[i] : 0, i < n ? needs[i] : 0, live, t);
+      for (int r = 0; r < 3; r++) sum[r] += t[r];
+    }
+    for (int r = 0; r < 3; r++) partials[r * (size_t)n_warps + w] = sum[r];
   }
 }
 

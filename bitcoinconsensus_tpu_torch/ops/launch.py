@@ -92,7 +92,7 @@ def call(fn, index: int, *args) -> None:
     try:
         words = _tls.words
     except AttributeError:
-        words = _tls.words = (ctypes.c_int64 * 16)()
+        words = _tls.words = (ctypes.c_int64 * 24)()
     n = len(args)
     words[:n] = args
     if index == _device_of():

@@ -46,7 +46,9 @@ REGION_PREFIX = "region:"
 
 # CUDA kernel symbol (the `__global__` function's name) -> region. The
 # verify kernel keeps the reference's region (`ops/pallas_kernel.py:432`),
-# the checksum the reference's (`crypto/jax_backend.py:379`); each toy of
+# and so does its checked launch, whose epilogue (the checksum's partials)
+# rides inside the verify kernel; the standalone checksum keeps the
+# reference's (`crypto/jax_backend.py:379`); each toy of
 # `csrc/toy_kernels.cu` gets its own (`tk_window_copy_kernel` serves the
 # out-of-bounds and double-write launchers alike); the two probes of
 # `verify_tiles.cu`'s device functions get theirs. The mesh's epilogue keeps
@@ -57,6 +59,7 @@ REGION_PREFIX = "region:"
 # scope there, and the challenge inside `sighash_prep`.
 KERNEL_REGIONS: Dict[str, str] = {
     "vt_verify_kernel": "verify_tiles",
+    "vt_verify_checked_kernel": "verify_tiles",
     "vc_checksum_kernel": "verdict_checksum",
     "ss_epilogue_kernel": "shard_step",
     "vt_recode_kernel": "vt_recode",

@@ -16,6 +16,21 @@ Three pieces live here:
 - The preamble (`_signed_digits128`, t1 + n), shared with the plain version;
   the CUDA kernel does the same per lane.
 
+The checked launch carries a dispatch's guard in the same kernel:
+
+- `verify_tiles_checked(..., live=None, ok_out=None, needs_out=None,
+  partials=True)` launches `vt_verify_tiles_checked` on CUDA tensors
+  (counted in `verify_tiles_checked.launches`, and those that wrote
+  partials in `.checksummed`): the same lane program,
+  which stores the verdicts as bool bytes into the caller's buffers (or
+  new ones) and, with `partials`, each warp's (count, weighted sum,
+  failures) into a (3, ceil(B / 32)) int32 buffer: the terms of
+  `ops/verdict_checksum.py` and `ops/shard_step.py`, per warp. CPU tensors
+  run `verify_tiles_checked_reference`: `verify_tiles_reference`, then
+  `epilogue_reference`, the epilogue's plain per-warp sums in int64.
+- `epilogue_sums(partials)` sums a launch's warps into the (count,
+  weighted sum, failures) triple the guards compare.
+
 Two probes run pieces of the kernel's own device code alone: `field_op`
 (its field layer, `vt_field_op`) and `recode` (its signed recoder,
 `vt_recode`), each against its plain version on the CPU.
@@ -74,6 +89,8 @@ from .limbs import (
 )
 
 __all__ = ["verify_tiles", "verify_tiles_reference", "VERIFY_TILES_CONTRACT",
+           "verify_tiles_checked", "verify_tiles_checked_reference",
+           "epilogue_reference", "epilogue_sums", "VERIFY_TILES_CHECKED_CONTRACT",
            "SGLV_WINDOWS", "SGLV_WIDTH", "field_op", "recode"]
 
 # Signed 5-bit windows over the 128-bit GLV halves: 26 windows of
@@ -343,6 +360,189 @@ def _launch(fields, want_odd, parity_req, has_t2, neg1, neg2, valid):
                 out.data_ptr(), B, grid, c.threads, c.dynamic_smem_bytes())
     verify_tiles.launches += 1
     return out[0] != 0, out[1] != 0
+
+
+# ---------------------------------------------------------------------------
+# The checked launch: the lane program and its epilogue in one kernel.
+
+CHECKSUM_MOD = 251  # csrc/verify_tiles.cu VT_CHECK_MOD, the checksum's modulus
+WARP = 32
+# csrc/verify_tiles.cu VT_CHECKED_MAX_LANES: 251 * 2^23 < 2^31, so a launch's
+# summed weights fit int32, as `ops/verdict_checksum.MAX_LANES`.
+MAX_CHECKED_LANES = 1 << 23
+
+
+def _epilogue_terms(ok, needs, live, first: int, dtype):
+    """The (3, L) terms of L lanes from lane index `first`: ok, ok·(i % 251
+    + 1), live ∧ ¬ok ∧ ¬needs (zeros without `live`)."""
+    v = ok.to(dtype)
+    i = torch.arange(v.shape[0], dtype=dtype, device=v.device) + first
+    fails = (live & ~ok & ~needs).to(dtype) if live is not None else torch.zeros_like(v)
+    return torch.stack((v, v * (i % CHECKSUM_MOD + 1), fails))
+
+
+def _warp_sums(terms, dtype):
+    """(3, L) terms -> (3, ceil(L / 32)) sums of each warp's 32 lanes."""
+    n = terms.shape[1]
+    n_warps = cdiv(n, WARP)
+    if n_warps * WARP != n:
+        terms = torch.cat((terms, terms.new_zeros((3, n_warps * WARP - n))), dim=1)
+    return terms.reshape(3, n_warps, WARP).sum(dim=2, dtype=dtype)
+
+
+def epilogue_reference(ok, needs, live=None, ok_out=None, needs_out=None,
+                       partials=True):
+    """The checked launch's epilogue on a launch's (B,) bool verdicts, in
+    plain torch: the verdicts copied into `ok_out` / `needs_out` where
+    given, and, with `partials` (True, or a (3, ceil(B / 32)) buffer to
+    copy them into), the per-warp sums of count, weighted sum and failures
+    (lane i weighted i % 251 + 1), in int64. Returns (ok, needs, partials
+    or None)."""
+    if ok_out is not None:
+        ok = ok_out.copy_(ok)
+    if needs_out is not None:
+        needs = needs_out.copy_(needs)
+    if partials is False or partials is None:
+        return ok, needs, None
+    sums = _warp_sums(_epilogue_terms(ok, needs, live, 0, torch.int64), torch.int64)
+    return ok, needs, sums if partials is True else partials.copy_(sums)
+
+
+def verify_tiles_checked_reference(fields, want_odd, parity_req, has_t2, neg1,
+                                   neg2, valid, live=None, ok_out=None,
+                                   needs_out=None, partials=True):
+    """Plain version of the checked launch: `verify_tiles_reference`, then
+    `epilogue_reference`."""
+    ok, needs = verify_tiles_reference(fields, want_odd, parity_req, has_t2,
+                                       neg1, neg2, valid)
+    return epilogue_reference(ok, needs, live, ok_out, needs_out, partials)
+
+
+def epilogue_sums(partials) -> Tuple[int, int, int]:
+    """(count, weighted sum, failures) of a launch: its (3, n_warps)
+    per-warp partials (a tensor on the CPU or an array) summed over the
+    warps, in int64."""
+    p = np.asarray(partials, dtype=np.int64)
+    if p.ndim != 2 or p.shape[0] != 3:
+        raise ValueError(f"partials must be (3, n_warps), got {p.shape}")
+    count, wsum, fails = p.sum(axis=1).tolist()
+    return count, wsum, fails
+
+
+def _checked_contract_body(block, fields, want_odd, parity_req, has_t2, neg1,
+                           neg2, valid, gtab, live):
+    ok, needs = verify_tiles_reference(fields, want_odd, parity_req, has_t2,
+                                       neg1, neg2, valid)
+    return ok, needs, epilogue_block(block, ok, needs, live)
+
+
+def epilogue_block(block, ok, needs, live):
+    """One block's epilogue in the kernel's int32 arithmetic: its (L,)
+    lanes' verdicts and `live` -> the (3, ceil(L / 32)) int32 sums of its
+    warps, lane i of the launch at 64·block + its place in the block."""
+    terms = _epilogue_terms(ok, needs, live, _VT_THREADS * block[0], torch.int32)
+    return _warp_sums(terms, torch.int32)
+
+
+# The launch of `vt_verify_tiles_checked`: `VERIFY_TILES_CONTRACT`'s grid,
+# threads and shared slots, one more input (`live`, the lanes whose failure
+# counts; the launcher takes a null one as all false) and three outputs:
+# the block's columns of the (B,) bool ok and needs, and its two warps'
+# columns of the (3, ceil(B / 32)) int32 partials, each written once (the
+# ragged edge masked: a warp wholly past B writes nothing). The body is the
+# plain version and the epilogue's int32 sums (`epilogue_block`), which
+# the prover holds inside int32 (`cuda.verify_tiles_checked`).
+VERIFY_TILES_CHECKED_CONTRACT = LaunchContract(
+    "verify_tiles_checked",
+    grid=VERIFY_TILES_CONTRACT.grid,
+    threads=_VT_THREADS,
+    ins=VERIFY_TILES_CONTRACT.ins + (_lanes(),),
+    outs=(_lanes(), _lanes(),
+          Window((3, _VT_THREADS // WARP),
+                 lambda b: (0, _VT_THREADS // WARP * b[0]))),
+    out_arrays=lambda fields, *_: (((fields[0],), torch.bool),
+                                   ((fields[0],), torch.bool),
+                                   ((3, cdiv(fields[0], WARP)), torch.int32)),
+    body=_checked_contract_body,
+    masked_edge=True,
+    dynamic_smem=_VT_SMEM,
+)
+
+
+def _check_bool_lanes(name, t, B, device) -> None:
+    if t.dtype != torch.bool or t.shape != (B,) or t.device != device \
+            or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous ({B},) bool tensor on "
+                         f"{device}, got {tuple(t.shape)} {t.dtype} {t.device}")
+
+
+def _launch_checked(fields, flags, valid, live, ok_out, needs_out, parts):
+    B = fields.shape[0]
+    dev = fields.device
+    c = VERIFY_TILES_CHECKED_CONTRACT
+    fn = launch.bind("verify_tiles", "vt_verify_tiles_checked")
+    gtab = gtable_words(dev)
+    (grid,) = c.grid(tuple(fields.shape))
+    if ok_out is None:
+        ok_out = torch.empty(B, dtype=torch.bool, device=dev)
+    if needs_out is None:
+        needs_out = torch.empty(B, dtype=torch.bool, device=dev)
+    launch.call(fn, fields.get_device(), fields.data_ptr(),
+                *(t.data_ptr() for t in flags), valid.data_ptr(), gtab.data_ptr(),
+                ok_out.data_ptr(), needs_out.data_ptr(),
+                0 if live is None else live.data_ptr(),
+                0 if parts is None else parts.data_ptr(),
+                B, grid, c.threads, c.dynamic_smem_bytes())
+    verify_tiles_checked.launches += 1
+    verify_tiles_checked.checksummed += parts is not None
+    return ok_out, needs_out, parts
+
+
+def verify_tiles_checked(fields, want_odd, parity_req, has_t2, neg1, neg2,
+                         valid, live=None, ok_out=None, needs_out=None,
+                         partials=True):
+    """(ok, needs_host, partials or None) of one checked launch: the
+    verdicts as (B,) bool, written into `ok_out` / `needs_out` where given
+    (contiguous (B,) bool on the inputs' device, as on the mesh, views of
+    a card's group buffers), and with `partials` (True, or a contiguous
+    (3, ceil(B / 32)) int32 buffer on that device to write them into) the
+    per-warp sums of count, weighted sum and, where `live` ((B,) bool)
+    marks the lanes that count, failures. CUDA tensors run the
+    hand-written kernel (or raise); CPU tensors run
+    `verify_tiles_checked_reference`. The partials are int32 either way."""
+    flags = (want_odd, parity_req, has_t2, neg1, neg2)
+    B = _check(fields, flags, valid)
+    if B > MAX_CHECKED_LANES:
+        raise ValueError(f"{B} lanes: the checked launch's int32 sums hold at "
+                         f"most {MAX_CHECKED_LANES}")
+    for name, t in (("live", live), ("ok_out", ok_out), ("needs_out", needs_out)):
+        if t is not None:
+            _check_bool_lanes(name, t, B, fields.device)
+    ((p_shape, p_dtype),) = VERIFY_TILES_CHECKED_CONTRACT.out_arrays(
+        tuple(fields.shape))[2:]
+    if partials is True:
+        parts = torch.empty(p_shape, dtype=p_dtype, device=fields.device)
+    elif partials is False or partials is None:
+        parts = None
+    else:
+        parts = partials
+        if parts.dtype != p_dtype or tuple(parts.shape) != p_shape \
+                or parts.device != fields.device or not parts.is_contiguous():
+            raise ValueError(f"partials must be a contiguous {p_shape} int32 tensor "
+                             f"on {fields.device}, got {tuple(parts.shape)} "
+                             f"{parts.dtype} {parts.device}")
+    if fields.is_cuda:
+        return _launch_checked(fields, flags, valid, live, ok_out, needs_out, parts)
+    if fields.device.type != "cpu":
+        raise ValueError(f"verify_tiles_checked runs on CUDA or the CPU, not "
+                         f"{fields.device}")
+    ok, needs, sums = verify_tiles_checked_reference(
+        fields, *flags, valid, live, ok_out, needs_out, parts is not None)
+    return ok, needs, None if parts is None else parts.copy_(sums)
+
+
+verify_tiles_checked.launches = 0
+verify_tiles_checked.checksummed = 0  # the launches that wrote partials
 
 
 FIELD_OPS = ("mul", "sqr", "add", "sub", "mul_int", "canon", "is_zero")

@@ -16,11 +16,14 @@ AND-reduced by a `psum` into the block verdict: the counterpart of
   same purpose). An entry's id is its position in the first list, as a
   string: the reference's `str(d.id)` on its virtual mesh.
 - `make_sharded_step(mesh)` is the step. Per shard it uploads the shard's
-  contiguous rows to its entry's device on the entry's stream and launches
-  `verify_tiles` over them; per device it launches the epilogue kernel
-  `ss_epilogue_kernel` (`ops/shard_step.py`) once over all that device's
-  shards, which gives every shard's (count, weighted sum) checksum pair and
-  its failure count; the devices' triples meet on the first entry's device,
+  contiguous rows to its entry's device on the entry's stream and makes one
+  checked verify launch over them (`ops/verify_tiles.verify_tiles_checked`):
+  the kernel writes the shard's verdicts straight into its rows of the
+  device's group buffers and, as its epilogue, each warp's (count,
+  weighted sum, failures), the terms of the reference's shard checksum
+  pair and failure count (`ops/shard_step.py` is their standalone
+  counterpart). Per device one reduction sums the warps into every
+  shard's triple; the devices' triples meet on the first entry's device,
   where one reduction of the failures gives `all_ok`, the `psum`'s
   counterpart (a copy on one card, a peer copy across cards; NCCL is not
   used). Nothing waits: the settle waits once, on one event a stream. On
@@ -70,8 +73,8 @@ from ..obs import histogram as _obs_histogram
 from ..obs import monotonic as _monotonic
 from ..obs import span as _obs_span
 from ..ops.regions import region_scope
-from ..ops.shard_step import shard_epilogue
-from ..ops.verify_tiles import verify_tiles
+from ..ops.contract import cdiv
+from ..ops.verify_tiles import WARP, verify_tiles_checked
 from ..resilience import degrade as _degrade
 from ..resilience import faults as _faults
 from ..resilience import guards as _guards
@@ -188,7 +191,7 @@ class _ShardedLaunch:
         self.padded = padded
         self.rows = rows
         self.groups = groups  # [(shard indices, host ok, host needs)]
-        self.trips = trips    # (3, d) int32: counts, wsums, failures
+        self.trips = trips    # (d, 3) int32: each shard's count, wsum, failures
         self.all_ok = all_ok  # () bool
         self.done = done      # CUDA events, one a stream (empty on the CPU)
         self.timing = timing  # (start, end) events around each shard's verify
@@ -211,7 +214,7 @@ class _ShardedLaunch:
                         ok[s * S:(s + 1) * S] = g_ok[j * S:(j + 1) * S]
                         needs[s * S:(s + 1) * S] = g_needs[j * S:(j + 1) * S]
             trips = self.trips.numpy()
-            return ok, needs, bool(self.all_ok.numpy()), trips[0], trips[1]
+            return ok, needs, bool(self.all_ok.numpy()), trips[:, 0], trips[:, 1]
 
     def kernel_ms(self) -> float:
         """Device ms of the shards' verify kernels (after `settle`)."""
@@ -253,7 +256,7 @@ def make_sharded_step(mesh: Mesh):
         return torch.empty(t.shape, dtype=t.dtype, pin_memory=True) if cuda else t
 
     def step(fields, want_odd, parity_req, has_t2, neg1, neg2, valid, live):
-        args = (fields, want_odd, parity_req, has_t2, neg1, neg2, valid)
+        args = (fields, want_odd, parity_req, has_t2, neg1, neg2, valid, live)
         padded = int(fields.shape[0])
         S = padded // d
         timing, keep, out_groups, trips_g = [], [], [], []
@@ -264,7 +267,8 @@ def make_sharded_step(mesh: Mesh):
                 with on(lead):
                     ok_g = torch.empty(k * S, dtype=torch.bool, device=dev)
                     needs_g = torch.empty_like(ok_g)
-                    live_g = torch.empty_like(ok_g)
+                    parts_g = torch.empty((k, 3, cdiv(S, WARP)), dtype=torch.int32,
+                                          device=dev)
                 waits = []
                 for j, s in enumerate(shards):
                     st = streams[s]
@@ -273,24 +277,24 @@ def make_sharded_step(mesh: Mesh):
                         if cuda and st is not lead:
                             st.wait_stream(lead)  # the group buffers' allocation
                         shard = tuple(a[rows].to(dev, non_blocking=True) for a in args)
-                        live_g[loc].copy_(live[rows], non_blocking=True)
                         e0 = event(st, True) if cuda else None
-                        ok, needs = verify_tiles(*shard)
+                        # The shard's verdicts land in its rows of the group
+                        # buffers, its warps' partials in its own slice.
+                        verify_tiles_checked(*shard[:7], live=shard[7], ok_out=ok_g[loc],
+                                             needs_out=needs_g[loc], partials=parts_g[j])
                         if cuda:
                             timing.append((e0, event(st, True)))
-                        ok_g[loc].copy_(ok)
-                        needs_g[loc].copy_(needs)
-                        if cuda and st is not lead:
-                            waits.append(event(st))
+                            if st is not lead:
+                                waits.append(event(st))
                 with on(lead):
                     for ev in waits:
                         lead.wait_event(ev)
-                    trip = shard_epilogue(ok_g, needs_g, live_g, k)
+                    trip = parts_g.sum(dim=2, dtype=torch.int32)  # (k, 3)
                     h_ok, h_needs = host_like(ok_g), host_like(needs_g)
                     if cuda:
                         h_ok.copy_(ok_g, non_blocking=True)
                         h_needs.copy_(needs_g, non_blocking=True)
-                keep += [ok_g, needs_g, live_g]
+                keep += [ok_g, needs_g, parts_g]
                 out_groups.append((shards, h_ok, h_needs))
                 trips_g.append((lead, trip))
             # The devices' triples meet on the first entry's device, where one
@@ -304,10 +308,10 @@ def make_sharded_step(mesh: Mesh):
                         with on(lead):
                             trip = trip.to(dev0, non_blocking=True)
                     cols.append(trip)
-                trips = cols[0] if len(cols) == 1 else torch.cat(cols, dim=1)
+                trips = cols[0] if len(cols) == 1 else torch.cat(cols, dim=0)
                 if perm is not None:
-                    trips = trips[:, perm.to(dev0)]
-                all_ok = trips[2].sum() == 0
+                    trips = trips[perm.to(dev0)]
+                all_ok = trips[:, 2].sum() == 0
                 h_trips, h_all = host_like(trips), host_like(all_ok)
                 if cuda:
                     h_trips.copy_(trips, non_blocking=True)
@@ -396,14 +400,13 @@ class ShardedSecpVerifier(TorchSecpVerifier):
         self.last_shard_lanes: List[int] = []  # live lanes a shard, last dispatch
         self._install_mesh(mesh)
         if self.device.type == "cuda":
-            # Set-up, as the base verifier's: the epilogue built or loaded and
-            # its module loaded on each card of the mesh, and the verify
-            # kernel's G table on each card past the first.
+            # Set-up, as the base verifier's on the first card: the checked
+            # kernel's module loaded and its G table uploaded on each card
+            # of the mesh past the first.
             for dev in dict.fromkeys(mesh.devices):
                 if dev != self.device:
-                    verify_tiles(*(t.to(dev) for t in self.to_device(self._pack_lanes([]))))
-                z = torch.zeros(1, dtype=torch.bool, device=dev)
-                shard_epilogue(z, z, z, 1)
+                    verify_tiles_checked(
+                        *(t.to(dev) for t in self.to_device(self._pack_lanes([]))))
 
     def _install_mesh(self, mesh: Mesh) -> None:
         """(Re)build the sharded step over `mesh`: the eviction and
@@ -746,7 +749,7 @@ class ShardedSecpVerifier(TorchSecpVerifier):
             self._rebuild_mesh()
 
     def _probe_device(self, dev_id: str) -> bool:
-        """An all-sentinel batch of 8 lanes through `verify_tiles` on the
+        """An all-sentinel batch of 8 lanes through one checked launch on the
         entry's device; True iff every known answer comes back right."""
         _faults.maybe_raise("mesh.probe")
         dev = dict(self._all_entries).get(dev_id)
@@ -759,7 +762,8 @@ class ShardedSecpVerifier(TorchSecpVerifier):
         sset = _guards.install_sentinels_at(args, [0, 1, 2, 3], rotation=0)
         if sset is None:
             return False
-        ok, _needs = verify_tiles(*(torch.from_numpy(a).to(dev) for a in args))
+        ok, _needs, _ = verify_tiles_checked(
+            *(torch.from_numpy(a).to(dev) for a in args), partials=False)
         ok = _guards.validate_verdict(settle_array(ok), size, "mesh.probe")
         try:
             sset.check(ok, None, "mesh.probe")

@@ -14,7 +14,8 @@ or an exception, never a verdict:
   is one module-global read.
 - ``guards``: every device return is validated (shape, domain,
   finiteness), checked on its known-answer sentinel lanes and against the
-  device verdict checksum (`ops/verdict_checksum.py`); and the opt-in audit
+  device verdict checksum (the checked verify launch's epilogue,
+  `ops/verify_tiles.verify_tiles_checked`); and the opt-in audit
   of signature-cache hits.
 - ``degrade``: the retry budget (`DispatchResilience`), `DispatchFailed`,
   and the mesh's per-entry health (`ShardLadder`: eviction and

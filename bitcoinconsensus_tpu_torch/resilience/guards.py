@@ -16,8 +16,10 @@ copy. Before the verifier treats it as a consensus verdict it must pass:
    dispatch's pattern is caught.
 3. **The verdict checksum** (`check_checksum`): the device's (count,
    position-weighted) sums over the verdict buffer, computed on the card
-   right after the verify kernel (`ops/verdict_checksum.py`), against the
-   same sums recomputed from the buffer the host received. Any single-lane
+   by the verify launch's own epilogue from the verdicts it stores
+   (`ops/verify_tiles.verify_tiles_checked`, per warp, summed on the host;
+   `ops/verdict_checksum.py` is the standalone kernel of the same sums),
+   against the same sums recomputed from the buffer the host received. Any single-lane
    flip moves the count.
 
 A buffer that fails any of them raises `VerdictAnomaly`; the in-flight

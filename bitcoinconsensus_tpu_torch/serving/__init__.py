@@ -16,7 +16,8 @@ queue (`resilience/`) make *faults* fail closed; this package makes
 - `server.VerifyServer` — the context-managed front end: submit() →
   admit-or-`OverloadError`, one worker thread drives bursts through
   `models/batch.verify_batch_stream` (on cuda:0 by default: every batch
-  runs `verify_tiles` and the verdict checksum kernel), close() drains
+  is one checked `verify_tiles` launch carrying the verdict checksum's
+  partials), close() drains
   (or explicitly cancels) everything admitted and leaves no unsettled
   ticket. A `DispatchFailed` fails its burst's requests explicitly and
   the worker serves on.

@@ -641,10 +641,10 @@ def run_corpus_check(corpus: Optional[List[CorpusCase]] = None, device=None,
     a stale pin — both fail the gauntlet (fail-closed, no allowlist).
     Also feeds the per-shape telemetry the stats gate requires. The batch
     leg runs on `verifier`, else on a new one on `device` (None: cuda:0).
-    `batch_launches` counts its `verify_tiles` launches."""
+    `batch_launches` counts its checked verify launches."""
     from time import perf_counter
 
-    from ..ops.verify_tiles import verify_tiles
+    from ..ops.verify_tiles import verify_tiles_checked
     from . import (
         GAUNTLET_CORPUS_CASES,
         GAUNTLET_DIVERGENCE,
@@ -655,9 +655,9 @@ def run_corpus_check(corpus: Optional[List[CorpusCase]] = None, device=None,
 
     verifier = resolve_verifier(device, verifier)
     cases = build_corpus() if corpus is None else corpus
-    launches0 = verify_tiles.launches
+    launches0 = verify_tiles_checked.launches
     bat = batch_verdicts([c.item for c in cases], verifier=verifier)
-    batch_launches = verify_tiles.launches - launches0
+    batch_launches = verify_tiles_checked.launches - launches0
     mismatches: List[dict] = []
     native_seen = False
     for c, b in zip(cases, bat):

@@ -7,8 +7,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. The card: nvidia-smi name and power limit, torch and CUDA versions.
 2. Build every kernel from `bitcoinconsensus_tpu_torch/csrc` with nvcc (the
-   verify kernel, the verdict checksum, the four SHA-256 kernels, the
-   mesh's shard-step epilogue and the toys), and
+   verify kernel and its checked launch, the verdict checksum, the four
+   SHA-256 kernels, the mesh's shard-step epilogue and the toys), and
    the native host core (`csrc/native/`) and the host build of the verify
    kernel's lane program (`csrc/verify_tiles_host.cpp`, for the scalar
    prover) with g++, one process per source, all started together; print
@@ -45,12 +45,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    `api` on its Python engine (`[block_exact]`); and the block with one
    corrupted signature, rejected alike by both, the bad tx's inputs as the
    per-input `api` says (`[block_reject]`). Each path's kernel launches are
-   read around it alone, and each must launch the verify kernel and, on
-   every dispatch, the verdict checksum kernel: every dispatch is guarded
-   (sentinel lanes in its pad, the checksum, `validate_verdict`). Then
+   read around it alone: each dispatch must be one checked verify launch
+   (`vt_verify_tiles_checked`, the verify kernel with its epilogue) that
+   carries the verdict checksum's partials, and no unchecked verify or
+   standalone checksum launch may run: every dispatch is guarded (sentinel
+   lanes in its pad, the checksum, `validate_verdict`). Then
    `[guards]`: the main path, the block and the stream with
    BITCOINCONSENSUS_TPU_CHECKSUM on and off in turns, every verdict equal,
-   sentinel lanes per dispatch and both kernels' launches reported; and
+   sentinel lanes per dispatch, the checked launches and those carrying
+   partials reported; and
    `[chaos]`: each fault kind at each of the port's sites
    (`torch_backend.dispatch`, `torch_backend.verdict`, `batch.dispatch`,
    `sigcache.sig` under the cache audit), once transient and once
@@ -61,11 +64,13 @@ Phases, each printing its own lines; any failure exits non-zero:
    `[block]`'s `split_ms` is the best run's span split, its `residual` what
    no span covers (`[block_split]`: each step's ms and share). `[obs]`: the
    main path and the block with telemetry armed (a JSONL span sink, phase
-   timelines) and disarmed, in turns, every verdict equal. `[xprof]`: a
+   timelines) and disarmed, in six rounds of turns each, every verdict
+   equal (`scripts/torch_obs_gate.py` runs these turns alone, many times,
+   with host readings beside each call). `[xprof]`: a
    torch.profiler capture around a warmed main path and a warmed block:
-   device seconds by region and by kernel symbol (`vt_verify_kernel` on
-   `verify_tiles`, `vc_checksum_kernel` on `verdict_checksum`, none of the
-   port's kernels unattributed), the device's busy share of the window and
+   device seconds by region and by kernel symbol (`vt_verify_checked_kernel`
+   on `verify_tiles`, none of the port's kernels unattributed), the
+   device's busy share of the window and
    its five longest idle gaps with the host spans open over them; the
    reports go to the output directory (`--out-dir`, by default
    build/chip_smoke/) as xprof_*.json. Then the device SHA-256 paths, after
@@ -80,8 +85,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    sibling pairs and odd tails, both timed; `[block_device_sha]`, the block
    on the Python block layer and engine with `device_merkle` and
    `device_challenge`, equal to the native `[block]`, its corrupted twin
-   rejected alike, launching the merkle level, challenge, verify and
-   checksum kernels; and one more `[xprof]` capture, of that path, which
+   rejected alike, launching the merkle level, challenge and checked
+   verify kernels; and one more `[xprof]` capture, of that path, which
    must charge `sh_merkle_level_kernel` to `sha256_compress` and
    `sh_challenge_kernel` to `sighash_prep`.
 4. Lane packing: the native core's packed lanes of the first 8,192 checks
@@ -100,6 +105,18 @@ Phases, each printing its own lines; any failure exits non-zero:
    (signed digits, tolerance 0, with the kernel's ms), and a width sweep: kernel ms at 64, 4,908, 8,192 and 32,768 lanes (the
    panel tiled), each compared with the plain version on a sample of lanes,
    with the SM clock and power draw read while it runs back to back. Then
+   `[verify_epilogue]`: the checked launch at the sweep widths and at 4,100
+   and 8,191 lanes against the unchecked kernel and the plain version
+   (verdicts), the standalone checksum kernel and its plain version (summed
+   partials) and the plain epilogue (each warp's), and at the mesh layouts
+   1 x 8,192, 4 x 2,048, 8 x 1,024 and 4 x 16 (one launch a shard, a live
+   mask) against the shard epilogue kernel and its plain version, tolerance
+   0; at 8,192 lanes in turns, the checked launch against the sequence a
+   dispatch made before (verify, two `!=`, checksum) by CUDA events and on
+   the device, and the mesh's per-card sequence before and after at 4 x
+   2,048; the epilogue's marginal device cost; the port's launches per
+   dispatch on the main path, block, stream and mesh, and the main path's
+   device kernels per dispatch. Then
    the verdict checksum kernel against its plain version at 16 widths from
    1 to 32,768 lanes, random, all-true and all-false buffers, with its time
    per call beside the two-call PyTorch equivalent (in turns), its device
@@ -144,8 +161,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    cuda:0, each on its own stream: the main path's inputs through
    `verify_batch`, the config-5 block through `connect_block` and the
    stream's 5 batches, each with its launches counted around it alone
-   (the verify kernel once a shard, the epilogue once a sharded dispatch,
-   the checksum kernel never) and every verdict equal to the single-device
+   (one checked verify launch a shard carrying its checksum and failure
+   partials; the unchecked verify, the standalone epilogue and the checksum
+   kernel never) and every verdict equal to the single-device
    runs'; `verify_checks_with_verdict`'s all_ok on a clean and a bad batch;
    the main path sharded against single in turns (a figure for the record,
    not a claim); and `make_mesh()` on the one card, which must dispatch as
@@ -156,8 +174,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    re-promotion after a clean probe, a failed probe, a straggle past the
    shard deadline, every shard failing into DispatchFailed), each
    `held=True wrong_accepts=0`. `[xprof]` of one sharded dispatch:
-   `ss_epilogue_kernel` charged to `shard_step`, `vt_verify_kernel` to
-   `verify_tiles`.
+   `vt_verify_checked_kernel` charged to `verify_tiles`, no
+   `ss_epilogue_kernel`.
 9. The service, after everything above (`serving/`, `models/sigstore.py`,
    `cell/`). `[serve]`: the main path's inputs from 8 client threads over 4
    tenants through one `VerifyServer` on cuda:0 (default `max_batch`, the
@@ -192,7 +210,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    and `verify_batch` (0 mismatches, the native core present, each shape's
    `consensus_gauntlet_shape_seconds`); `leg=corpus_lanes`: the
    scalar-edge, fan-out and taproot cases' checks packed by `prep_pack`,
-   `verify_tiles` against `verify_tiles_reference` on the card lane for
+   the checked launch against `verify_tiles_reference` on the card lane for
    lane (tolerance 0) and every decided lane against the host oracle;
    `leg=fuzz`: 500 mutants over the five seeds of
    `fuzz/gauntlet_seeds.json`, three engines, 0 divergences, cases by
@@ -206,10 +224,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    when overloaded). `[gauntlet_chaos]`: the ten trials of
    `python -m bitcoinconsensus_tpu_torch.workloads --chaos`, one line
    each, each `held=True` with 0 wrong ACCEPTs.
-11. A `kernels` JSON line (with each path's launches of `verify_tiles`,
-   `verdict_checksum`, the epilogue and the SHA-256 kernels; the cell's
-   replicas launch in their own processes, read over their control
-   channels), the card line, and the result line.
+11. A `kernels` JSON line (each path's checked verify launches; the
+   unchecked verify kernel's, the standalone checksum's and epilogue's
+   counted around their own drives, as the toys'; the SHA-256 kernels';
+   the cell's replicas launch in their own processes, read over their
+   control channels), the card line, and the result line.
 
 The script needs the repository beside it; with no CUDA device, or alone in
 a directory, it exits non-zero without a result. `--rehearse-cpu` runs the
@@ -634,10 +653,11 @@ def _api_exact(raw: bytes, index: int, spent, flags: int):
 
 
 def _hold_to_plain(VT, verifier, lanes, sync):
-    """The kernel and its plain version on the same packed lanes, every lane
-    on the card: (max_abs_err over `ok` and `needs_host`, kernel accepts)."""
+    """The path's kernel (the checked launch) and its plain version on the
+    same packed lanes, every lane on the card: (max_abs_err over `ok` and
+    `needs_host`, kernel accepts)."""
     dev = verifier.to_device(lanes)
-    ok_k, nd_k = VT.verify_tiles(*dev)
+    ok_k, nd_k, _ = VT.verify_tiles_checked(*dev)
     ok_r, nd_r = VT.verify_tiles_reference(*dev)
     sync()
     err = max(int((ok_k.int() - ok_r.int()).abs().max()),
@@ -857,7 +877,8 @@ def _block(device, sync, launches_around, rehearse):
     # The same lanes again, the kernel warmed and launched back to back: an
     # in-pipeline launch follows tens of ms of idle device.
     warm_args = verifier.to_device(seen[-1][0])
-    warm_ms = _timed(lambda: VT.verify_tiles(*warm_args), 1 if rehearse else 20, device)
+    warm_ms = _timed(lambda: VT.verify_tiles_checked(*warm_args), 1 if rehearse else 20,
+                     device)
     plain = plain_view()
     t0 = time.perf_counter()
     res_py = launches_around("block_python", lambda: connect_block(
@@ -1064,11 +1085,11 @@ def _guards_phase(items, results, block_run, device, sync, rehearse) -> None:
     and fresh caches each time: every verdict equal to the main path's
     (held to the exact spec by `[main_path_check]`) and the block's result
     equal to `[block]`'s. Reports the sentinel lanes per dispatch, the
-    tickets, and the verify and checksum kernels' launches of each run."""
+    tickets, and the checked launches and those carrying the checksum
+    partials in each run."""
     from bitcoinconsensus_tpu_torch.crypto.torch_backend import TorchSecpVerifier
     from bitcoinconsensus_tpu_torch.models.batch import verify_batch, verify_batch_stream
     from bitcoinconsensus_tpu_torch.models.sigcache import ScriptExecutionCache, SigCache
-    from bitcoinconsensus_tpu_torch.ops import verdict_checksum as VC
     from bitcoinconsensus_tpu_torch.ops import verify_tiles as VT
 
     want = _verdicts(results)
@@ -1092,7 +1113,8 @@ def _guards_phase(items, results, block_run, device, sync, rehearse) -> None:
                 _set_checksum(on)
                 v = TorchSecpVerifier(device=device, **cfg)
                 sync()
-                vt0, vc0 = VT.verify_tiles.launches, VC.verdict_checksum.launches
+                vt0 = VT.verify_tiles_checked.launches
+                vc0 = VT.verify_tiles_checked.checksummed
                 t0 = time.perf_counter()
                 got = run(v)
                 sync()
@@ -1103,8 +1125,8 @@ def _guards_phase(items, results, block_run, device, sync, rehearse) -> None:
                     sum(a != b for a, b in zip(got, expect, strict=True)),
                     tickets=int(st["tickets"]), sentinels=int(st["sentinel_lanes"]),
                     skipped=int(st["sentinel_skipped"]),
-                    verify=VT.verify_tiles.launches - vt0,
-                    checksum=VC.verdict_checksum.launches - vc0,
+                    verify=VT.verify_tiles_checked.launches - vt0,
+                    checksum=VT.verify_tiles_checked.checksummed - vc0,
                     anomalies=int(st["guard_anomalies"])))
             runs = seen[True] + seen[False]
             _line("guards", path=path, order="on,off,off,on",
@@ -1125,8 +1147,8 @@ def _guards_phase(items, results, block_run, device, sync, rehearse) -> None:
             if not rehearse and any(r["checksum"] != r["verify"] or r["verify"] < 1
                                     for r in seen[True]) \
                     or any(r["checksum"] for r in seen[False]):
-                _fail(f"[guards] {path}: the checksum kernel did not ride every "
-                      "dispatch with the checksum on, or ran with it off")
+                _fail(f"[guards] {path}: the checksum partials did not ride every "
+                      "dispatch with the checksum on, or were written with it off")
     finally:
         os.environ.pop("BITCOINCONSENSUS_TPU_CHECKSUM", None)
 
@@ -1248,12 +1270,15 @@ class _TimedSink:
         self.seconds += time.perf_counter() - t0
 
 
+OBS_ROUNDS = 6  # `[obs]`'s rounds of (off, on, on, off) a path
+
+
 def _obs_phase(items, results, block_run, device, sync) -> None:
     """`[obs]`: the main path (one `verify_batch` over every input) and the
     config-5 block, each with telemetry armed (a JSONL span sink attached,
     phase timelines on) and disarmed (no sink, timelines off), in turns
-    (off, on, on, off; twice for the main path, four times for the block)
-    on one warmed verifier, fresh caches each call: both sides' times,
+    (off, on, on, off; six times for each path) on one warmed verifier,
+    fresh caches each call: both sides' times,
     medians and spreads, the first armed call and the sink's write time in
     each armed call (a cost of arming would show there), and every verdict
     compared with `[main_path]`'s and `[block]`'s (tolerance 0).
@@ -1273,13 +1298,15 @@ def _obs_phase(items, results, block_run, device, sync) -> None:
     os.makedirs(out_dir, exist_ok=True)
     connect, block_want, block_cfg = block_run[:3]
     want = _verdicts(results)
-    # (verifier config, one call, its verdicts, rounds of turns): the block
-    # is cheap, so it takes more rounds against the host's noise.
+    # (verifier config, one call, its verdicts, rounds of turns). Six rounds:
+    # the host's noise moves a main-path call by up to half its time, in
+    # bursts that can take both armed calls of one round (12 rounds a path
+    # on the card showed no cost of arming: scripts/torch_obs_gate.py).
     paths = {
         "main_path": ({}, lambda v: _verdicts(verify_batch(
             items, verifier=v, sig_cache=SigCache(), script_cache=ScriptExecutionCache())),
-            want, 2),
-        "block": (block_cfg, connect, block_want, 4),
+            want, OBS_ROUNDS),
+        "block": (block_cfg, connect, block_want, OBS_ROUNDS),
     }
     med = lambda v: sorted(v)[len(v) // 2]  # noqa: E731
     bad = []
@@ -1408,6 +1435,12 @@ def _xprof_phase(items, results, block_run, device, sync, rehearse, out_dir,
         port_unattr = {k: v for k, v in rep["unattributed_symbols"].items()
                        if k.startswith(("vt_", "vc_", "sh_", "tk_"))}
         sym = rep["symbols"]
+        # A dispatch is one kernel: the checked launch, and on the device-SHA
+        # path the merkle level and challenge kernels besides.
+        allowed = {"vt_verify_checked_kernel"} | (
+            {"sh_merkle_level_kernel", "sh_challenge_kernel"}
+            if name == "block_device_sha" else set())
+        others = sorted(set(sym) - allowed)
         _line("xprof", path=name, wall_s=f"{rep['walls_s'][0]:.4f}",
               capture_s=f"{cap_s:.2f}",
               regions_ms=json.dumps({k: round(v["seconds"] * 1e3, 5)
@@ -1417,21 +1450,21 @@ def _xprof_phase(items, results, block_run, device, sync, rehearse, out_dir,
               port_unattributed_ms=f"{sum(port_unattr.values()) * 1e3:.5f}",
               device_busy_share=f"{rep['device_busy_share']:.5f}",
               window_ms=f"{rep['window_s'] * 1e3:.3f}", kernels=rep["kernels"],
-              same_verdicts=got[name] == expect)
+              other_kernels=json.dumps(others), same_verdicts=got[name] == expect)
         for g in rep["gaps"]:
             _line("xprof", path=name, gap_ms=f"{g['length_s'] * 1e3:.3f}",
                   at_ms=f"{g['start_s'] * 1e3:.3f}", host_span=g["host_span"],
                   host_spans=json.dumps([[n, round(t * 1e3, 3)]
                                          for n, t in g["host_spans"]]))
         regions = rep["regions"]
-        if (not sym.get("vt_verify_kernel") or not sym.get("vc_checksum_kernel")
+        if (not sym.get("vt_verify_checked_kernel") or others
                 or port_unattr or got[name] != expect
-                or regions.get("verify_tiles", {}).get("seconds") != sym["vt_verify_kernel"]
-                or regions.get("verdict_checksum", {}).get("seconds")
-                != sym["vc_checksum_kernel"]
+                or regions.get("verify_tiles", {}).get("seconds")
+                != sym["vt_verify_checked_kernel"]
                 or not 0.0 < rep["device_busy_share"] <= 1.0):
-            _fail(f"[xprof] {name}: the capture did not charge the port's kernels "
-                  "to their regions, or a verdict changed under it")
+            _fail(f"[xprof] {name}: the capture did not charge the checked launch to "
+                  "verify_tiles, saw another kernel on the path, or a verdict "
+                  "changed under it")
         if name == "block_device_sha" and (
                 not sym.get("sh_merkle_level_kernel") or not sym.get("sh_challenge_kernel")
                 or regions.get("sha256_compress", {}).get("seconds")
@@ -1551,6 +1584,263 @@ def _shard_step_phase(device, rng, rehearse):
     return entry
 
 
+# The checked launch's widths: the sweep's, one whose last block holds 4
+# lanes (its second warp wholly past the lanes) and one a lane short of a
+# dispatch (its last warp 31 lanes); and the mesh layouts (shards x rows).
+EPILOGUE_WIDTHS = SWEEP_WIDTHS + (4100, 8191)
+EPILOGUE_LAYOUTS = ((1, 8192), (4, 2048), (8, 1024), (4, 16))
+
+
+def _device_kernels(fn, reps):
+    """{kernel: [mean device ms a launch, launches a call]} of every CUDA
+    kernel `fn` launches (copies, fills and the device side of `region:`
+    ranges left out), by torch.profiler over `reps` calls. The profiler
+    first records a warm-up step of `reps` calls and throws it away: a
+    capture that starts recording at once lost its first launches on the
+    card (launch counts of 0.8 a call for a kernel launched once). None
+    (not measured) where the profiler fails or shows no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    got = []
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=lambda p: got.append(p.key_averages())) as prof:
+            for _step in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+    except Exception as e:  # an optional measurement: report, do not fail
+        print(f"  profiler unavailable: {type(e).__name__}: {e}", flush=True)
+        return None
+    out = {}
+    for e in got[-1] if got else ():
+        if getattr(e, "device_type", None) != DeviceType.CUDA \
+                or getattr(e, "is_user_annotation", False) \
+                or e.key.startswith(("Memcpy", "Memset", "region:")):
+            continue
+        sym = e.key.split("(")[0].split("<")[0].split(" ")[-1].split("::")[-1]
+        t = out.setdefault(sym, [0.0, 0])
+        t[0] += e.self_device_time_total / 1e3
+        t[1] += e.count
+    return {k: [ms / n, n / reps] for k, (ms, n) in out.items() if n} or None
+
+
+def _verify_epilogue_phase(tiled, panel_plain, items, block_run, device, sync, rng,
+                           rehearse):
+    """`[verify_epilogue]`: the checked launch (`vt_verify_tiles_checked`:
+    the verify kernel's lane program with its epilogue), tolerance 0
+    throughout. At every width of EPILOGUE_WIDTHS over the perturbed panel
+    tiled (lane i is the panel's lane i mod its width, so `panel_plain`,
+    the plain version's verdicts on the panel, gives every lane's): its
+    verdicts against `vt_verify_tiles`' and the plain version's on every
+    lane, its summed partials against the standalone `verdict_checksum` kernel and
+    `verdict_checksum_reference`, its per-warp partials against
+    `epilogue_reference`. At every layout of EPILOGUE_LAYOUTS, one checked
+    launch a shard into the group buffers with a seeded live mask: each
+    shard's (count, weighted sum, failures) against the `shard_epilogue`
+    kernel and its plain version, the verdicts against `vt_verify_tiles`'
+    and the plain version's. Then, at 8,192 lanes in turns (CUDA events;
+    and a launch's device time by torch.profiler), the checked launch
+    against the sequence a dispatch made before it (verify, two `!=`,
+    checksum) and against the lane program alone in the same launcher; at
+    4 x 2,048 the mesh's per-card
+    sequence before (four verifies, eight `!=`, eight copies, the epilogue)
+    against the new one (four checked launches, one sum). Last, the port's
+    kernel launches per dispatch on the main path, the block, the stream
+    and the 4-entry mesh, and the main path's device kernels per dispatch.
+    Returns the kernels-line entry's measured numbers at 8,192 lanes."""
+    import numpy as np
+    import torch
+
+    from bitcoinconsensus_tpu_torch.crypto.torch_backend import TorchSecpVerifier
+    from bitcoinconsensus_tpu_torch.models.batch import verify_batch, verify_batch_stream
+    from bitcoinconsensus_tpu_torch.models.sigcache import ScriptExecutionCache, SigCache
+    from bitcoinconsensus_tpu_torch.ops import shard_step as SS
+    from bitcoinconsensus_tpu_torch.ops import verdict_checksum as VC
+    from bitcoinconsensus_tpu_torch.ops import verify_tiles as VT
+
+    t_phase = time.perf_counter()
+
+    def dev_args(width):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a[:width])).to(device)
+                     for a in tiled)
+
+    def diff(a, b) -> int:
+        return int((a.cpu().long() != b.cpu().long()).sum())
+
+    def plain(width):
+        idx = torch.arange(width, device=device) % panel_plain[0].shape[0]
+        return panel_plain[0][idx], panel_plain[1][idx]
+
+    bad = max_err = 0
+    widths = (16, 64) if rehearse else EPILOGUE_WIDTHS
+    layouts = ((1, 64), (4, 16)) if rehearse else EPILOGUE_LAYOUTS
+    for width in widths:
+        args = dev_args(width)
+        ok_v, nd_v = VT.verify_tiles(*args)
+        ok_c, nd_c, parts = VT.verify_tiles_checked(*args)
+        ok_p, nd_p = plain(width)
+        sync()
+        _, _, p_ref = VT.epilogue_reference(ok_c, nd_c)
+        sums = list(VT.epilogue_sums(parts.cpu()))
+        vc_k = VC.verdict_checksum(ok_c).cpu().tolist()
+        vc_r = VC.verdict_checksum_reference(ok_c).cpu().tolist()
+        n = dict(vs_unchecked=diff(ok_c, ok_v) + diff(nd_c, nd_v),
+                 vs_plain=diff(ok_c, ok_p) + diff(nd_c, nd_p),
+                 partial_words=diff(parts, p_ref),
+                 sums=int(sums[:2] != vc_k) + int(sums[:2] != vc_r) + int(sums[2] != 0))
+        max_err = max(max_err, *(abs(a - b) for a, b in zip(sums[:2], vc_k)),
+                      int((parts.cpu().long() - p_ref.cpu()).abs().max()))
+        bad += sum(n.values())
+        _line("verify_epilogue", lanes=width, warps=parts.shape[1],
+              count=sums[0], wsum=sums[1], checksum_kernel=json.dumps(vc_k),
+              tolerance=0, **{f"differing_{k}": v for k, v in n.items()})
+    for d, rows in layouts:
+        B = d * rows
+        args = dev_args(B)
+        live = torch.from_numpy(rng.random(B) < 0.9).to(device)
+        ok_g = torch.empty(B, dtype=torch.bool, device=device)
+        needs_g = torch.empty_like(ok_g)
+        parts_g = torch.empty((d, 3, -(-rows // VT.WARP)), dtype=torch.int32, device=device)
+        for s in range(d):
+            sl = slice(s * rows, (s + 1) * rows)
+            VT.verify_tiles_checked(*(a[sl] for a in args), live=live[sl], ok_out=ok_g[sl],
+                                    needs_out=needs_g[sl], partials=parts_g[s])
+        trips = parts_g.sum(dim=2).T
+        ok_v, nd_v = VT.verify_tiles(*args)
+        ok_p, nd_p = plain(B)
+        ss_k = SS.shard_epilogue(ok_g, needs_g, live, d)
+        ss_r = SS.shard_epilogue_reference(ok_g, needs_g, live, d)
+        sync()
+        n = dict(verdicts=diff(ok_g, ok_v) + diff(needs_g, nd_v),
+                 verdicts_plain=diff(ok_g, ok_p) + diff(needs_g, nd_p),
+                 triples_kernel=diff(trips, ss_k), triples_plain=diff(trips, ss_r))
+        max_err = max(max_err, int((trips.cpu().long() - ss_r.cpu()).abs().max()))
+        bad += sum(n.values())
+        _line("verify_epilogue", shards=d, rows=rows,
+              failures=json.dumps(trips[2].cpu().tolist()), tolerance=0,
+              **{f"differing_{k}": v for k, v in n.items()})
+
+    # The checked launch against the sequence it replaces, at a dispatch.
+    width = 64 if rehearse else 8192
+    args = dev_args(width)
+    reps, rounds = (1, 1) if rehearse else (20, 5)
+
+    def old():  # vt_verify_tiles, two `!=`, the standalone checksum
+        ok, _needs = VT.verify_tiles(*args)
+        return VC.verdict_checksum(ok)
+
+    fns = {"old_sequence": old, "checked": lambda: VT.verify_tiles_checked(*args),
+           "checked_no_partials": lambda: VT.verify_tiles_checked(*args, partials=False)}
+    ms = dict(zip(fns, _timed_turns(list(fns.values()), reps, rounds, device)))
+    dev = {k: None if rehearse else _device_kernels(f, 10)
+           for k, f in fns.items() if k != "checked_no_partials"}
+
+    # The mesh's per-card sequence at 4 x 2,048, on one stream.
+    d, rows = (4, 16) if rehearse else (4, 2048)
+    margs = dev_args(d * rows)
+    shards = [tuple(a[s * rows:(s + 1) * rows] for a in margs) for s in range(d)]
+    live = torch.ones(d * rows, dtype=torch.bool, device=device)
+    ok_g, needs_g = torch.empty_like(live), torch.empty_like(live)
+    parts_g = torch.empty((d, 3, -(-rows // VT.WARP)), dtype=torch.int32, device=device)
+
+    def mesh_old():  # per shard a verify, two `!=`, two copies; the epilogue
+        for s, sh in enumerate(shards):
+            ok, nd = VT.verify_tiles(*sh)
+            ok_g[s * rows:(s + 1) * rows].copy_(ok)
+            needs_g[s * rows:(s + 1) * rows].copy_(nd)
+        return SS.shard_epilogue(ok_g, needs_g, live, d)
+
+    def mesh_new():  # per shard one checked launch; one sum of the warps
+        for s, sh in enumerate(shards):
+            sl = slice(s * rows, (s + 1) * rows)
+            VT.verify_tiles_checked(*sh, live=live[sl], ok_out=ok_g[sl],
+                                    needs_out=needs_g[sl], partials=parts_g[s])
+        return parts_g.sum(dim=2, dtype=torch.int32)
+
+    mfns = {"mesh_old_sequence": mesh_old, "mesh_checked": mesh_new}
+    ms.update(zip(mfns, _timed_turns(list(mfns.values()), max(1, reps // 4), rounds,
+                                     device)))
+    dev.update({k: None if rehearse else _device_kernels(f, 3) for k, f in mfns.items()})
+    # A call's device time: each kernel's mean a launch times its launches.
+    total = {k: None if v is None else round(sum(t * c for t, c in v.values()), 5)
+             for k, v in dev.items()}
+    _line("verify_epilogue", timed="turns", lanes=width, mesh_layout=f"{d}x{rows}",
+          ms=json.dumps({k: round(v, 5) for k, v in ms.items()}),
+          device_ms=json.dumps(total),
+          device_kernels=json.dumps({k: None if v is None else
+                                     {s: [round(t, 5), round(c, 3)] for s, (t, c) in v.items()}
+                                     for k, v in dev.items()}),
+          kernels_per_call=json.dumps({k: None if v is None else
+                                       round(sum(c for _, c in v.values()), 3)
+                                       for k, v in dev.items()}))
+    # The epilogue's marginal device cost: a checked launch's mean device
+    # time less an unchecked one's, both captured in this phase.
+    per_launch = {k: None if v is None else v.get(sym, [None])[0] for k, v, sym in (
+        ("unchecked", dev["old_sequence"], "vt_verify_kernel"),
+        ("checked", dev["checked"], "vt_verify_checked_kernel"))}
+    marginal = None if None in per_launch.values() else \
+        round(per_launch["checked"] - per_launch["unchecked"], 5)
+
+    # The port's kernel launches per dispatch on each path, and the main
+    # path's device kernels per dispatch.
+    connect, _want, block_cfg = block_run[:3]
+    size = len(items) // 5
+    batches = [items[k * size:(k + 1) * size] for k in range(5)]
+
+    def caches():
+        return dict(sig_cache=SigCache(), script_cache=ScriptExecutionCache())
+
+    drives = {
+        "main_path": (TorchSecpVerifier(device=device),
+                      lambda v: verify_batch(items, verifier=v, **caches())),
+        "block": (TorchSecpVerifier(device=device, **block_cfg), connect),
+        "stream": (TorchSecpVerifier(device=device), lambda v: list(verify_batch_stream(
+            iter(batches), verifier=v, depth=2, **caches()))),
+        "mesh": (_mesh_verifier(device),
+                 lambda v: verify_batch(items, verifier=v, **caches())),
+    }
+    per_dispatch = {}
+    for path, (v, run) in drives.items():
+        sync()
+        VT.verify_tiles_checked.launches = VT.verify_tiles.launches = 0
+        VC.verdict_checksum.launches = SS.shard_epilogue.launches = 0
+        run(v)
+        sync()
+        launched = (VT.verify_tiles_checked.launches + VT.verify_tiles.launches
+                    + VC.verdict_checksum.launches + SS.shard_epilogue.launches)
+        per_dispatch[path] = round(launched / max(int(v.stats["dispatches"]), 1), 4)
+    # One warm-up call and one profiled call of the main path.
+    main_v, main_run = drives["main_path"]
+    dispatches0 = int(main_v.stats["dispatches"])
+    kernels = None if rehearse else _device_kernels(lambda: main_run(main_v), 1)
+    per_call = (int(main_v.stats["dispatches"]) - dispatches0) / 2
+    _line("verify_epilogue", launches_per_dispatch=json.dumps(per_dispatch),
+          mesh_entries=MESH_ENTRIES, main_path_dispatches=per_call,
+          main_path_device_kernels_per_dispatch=json.dumps(
+              None if kernels is None or not per_call else
+              {s: round(c / per_call, 4) for s, (_t, c) in kernels.items()}))
+    _line("verify_epilogue", widths=len(widths), layouts=len(layouts),
+          tolerance=0, differing=bad, max_abs_err=max_err,
+          epilogue_marginal_device_ms=json.dumps(marginal),
+          seconds=f"{time.perf_counter() - t_phase:.2f}")
+    if bad:
+        _fail("[verify_epilogue]: the checked launch disagrees with the unchecked "
+              "kernel, the plain version or the standalone checksum and epilogue")
+    if not rehearse and (per_dispatch["main_path"] != 1 or per_dispatch["block"] != 1
+                         or per_dispatch["stream"] != 1
+                         or per_dispatch["mesh"] != MESH_ENTRIES):
+        _fail(f"[verify_epilogue]: a dispatch launched more than its kernel: "
+              f"{per_dispatch}")
+    return dict(ms=ms["checked"], device_ms=per_launch["checked"], max_abs_err=max_err,
+                old_sequence_ms=ms["old_sequence"],
+                epilogue_marginal_device_ms=marginal)
+
+
 def _mesh_verifier(device, **kw):
     """A ShardedSecpVerifier over MESH_ENTRIES entries of `device`."""
     from bitcoinconsensus_tpu_torch.parallel import ShardedSecpVerifier, make_mesh
@@ -1579,14 +1869,15 @@ def _mesh_phase(items, results, block_run, sent, device, sync, rehearse, path_la
     mode, the config-5 block through `connect_block` and the stream's 5
     batches through `verify_batch_stream`, each with fresh caches and its
     kernels' launch counts set to 0 just before it and read just after:
-    every verdict equal to the single-device runs', the verify kernel
-    launched once a shard, the epilogue once a sharded dispatch, the
-    checksum kernel never. Then `verify_checks_with_verdict`'s all_ok on a
+    every verdict equal to the single-device runs', the checked verify
+    kernel launched once a shard with its partials, and the standalone
+    epilogue, the unchecked verify kernel and the standalone checksum
+    never. Then `verify_checks_with_verdict`'s all_ok on a
     clean and a bad batch; the main path sharded against single in turns
     (single, mesh, mesh, single; a figure for the record, not a claim); and
     the one-entry mesh of `make_mesh()` on the card, which dispatches as the
     base verifier (mesh_dispatches=0, the reference's d < 2 rule). Returns
-    (the epilogue's launches by path, the context of the next phases)."""
+    the context of the next phases."""
     import torch
 
     from bitcoinconsensus_tpu_torch.crypto.torch_backend import TorchSecpVerifier
@@ -1599,27 +1890,28 @@ def _mesh_phase(items, results, block_run, sent, device, sync, rehearse, path_la
 
     t_phase = time.perf_counter()
     want = _verdicts(results)
-    epilogue_launches = {}
 
     def counted(path, verifier, fn):
         sync()
+        VT.verify_tiles_checked.launches = VT.verify_tiles_checked.checksummed = 0
         VT.verify_tiles.launches = SS.shard_epilogue.launches = 0
         VC.verdict_checksum.launches = 0
         t0 = time.perf_counter()
         out = fn()
         sync()
         dt = time.perf_counter() - t0
-        n = dict(verify=VT.verify_tiles.launches, epilogue=SS.shard_epilogue.launches,
+        n = dict(verify=VT.verify_tiles_checked.launches,
+                 partials=VT.verify_tiles_checked.checksummed,
+                 unchecked=VT.verify_tiles.launches, epilogue=SS.shard_epilogue.launches,
                  checksum=VC.verdict_checksum.launches)
         path_launches[path] = n["verify"]
-        epilogue_launches[path] = n["epilogue"]
         md = int(verifier.stats["mesh_dispatches"])
-        if not rehearse and (md < 1 or n["epilogue"] != md
-                             or n["verify"] != MESH_ENTRIES * md or n["checksum"]
+        if not rehearse and (md < 1 or n["verify"] != MESH_ENTRIES * md
+                             or n["partials"] != n["verify"] or n["unchecked"]
+                             or n["epilogue"] or n["checksum"]
                              or verifier.stats["mesh_unsharded"]):
-            _fail(f"[mesh] {path}: the sharded dispatches did not launch the verify "
-                  f"kernel once a shard and the epilogue once each: {n}, "
-                  f"mesh_dispatches={md}")
+            _fail(f"[mesh] {path}: the sharded dispatches did not make one checked "
+                  f"verify launch a shard and nothing else: {n}, mesh_dispatches={md}")
         return out, n, dt
 
     def line(path, verifier, n, dt, lanes, differing, **extra):
@@ -1628,6 +1920,7 @@ def _mesh_phase(items, results, block_run, sent, device, sync, rehearse, path_la
               checks=int(st["lanes"]), padded_lanes=int(st["padded_lanes"]),
               dispatches=int(st["dispatches"]), mesh_dispatches=int(st["mesh_dispatches"]),
               shard_lanes=json.dumps(lanes), verify_launches=n["verify"],
+              partials_launches=n["partials"], unchecked_verify_launches=n["unchecked"],
               epilogue_launches=n["epilogue"], checksum_launches=n["checksum"],
               kernel_ms=f"{st['kernel_ms']:.3f}", s=f"{dt:.4f}", tolerance=0,
               differing=differing, **extra)
@@ -1704,7 +1997,7 @@ def _mesh_phase(items, results, block_run, sent, device, sync, rehearse, path_la
             1 if rehearse else torch.cuda.device_count()):
         _fail("[mesh] one_entry: the one-entry mesh differs from the base verifier")
     _line("mesh_time", seconds=f"{time.perf_counter() - t_phase:.2f}")
-    return epilogue_launches, dict(checks=checks, single=single)
+    return dict(checks=checks, single=single)
 
 
 def _mesh_faults_phase(ctx, device, rehearse) -> None:
@@ -1813,9 +2106,10 @@ def _metric_samples(name):
 
 def _mesh_xprof_phase(ctx, device, sync, rehearse, out_dir) -> None:
     """`[xprof]` of one warmed sharded dispatch (`verify_checks` of the
-    2,000 checks on the 4-entry card mesh): `ss_epilogue_kernel` charged to
-    `shard_step`, `vt_verify_kernel` to `verify_tiles`, no kernel of the port
-    unattributed; the busy share and the idle gaps."""
+    2,000 checks on the 4-entry card mesh): `vt_verify_checked_kernel`
+    charged to `verify_tiles`, no `ss_epilogue_kernel`, unchecked verify or
+    checksum kernel, no kernel of the port unattributed (the warps' sums
+    are PyTorch reductions, listed); the busy share and the idle gaps."""
     from bitcoinconsensus_tpu_torch.obs import xprof
 
     if rehearse:
@@ -1843,12 +2137,14 @@ def _mesh_xprof_phase(ctx, device, sync, rehearse, out_dir) -> None:
     for g in rep["gaps"]:
         _line("xprof", path="mesh", gap_ms=f"{g['length_s'] * 1e3:.3f}",
               at_ms=f"{g['start_s'] * 1e3:.3f}", host_span=g["host_span"])
-    if (not sym.get("ss_epilogue_kernel") or not sym.get("vt_verify_kernel") or port_unattr
-            or regions.get("verify_tiles", {}).get("seconds") != sym["vt_verify_kernel"]
-            or regions.get("shard_step", {}).get("seconds", 0.0) < sym["ss_epilogue_kernel"]
+    stale = [k for k in ("ss_epilogue_kernel", "vt_verify_kernel", "vc_checksum_kernel")
+             if sym.get(k)]
+    if (not sym.get("vt_verify_checked_kernel") or stale or port_unattr
+            or regions.get("verify_tiles", {}).get("seconds")
+            != sym["vt_verify_checked_kernel"]
             or not 0.0 < rep["device_busy_share"] <= 1.0):
-        _fail("[xprof] mesh: the capture did not charge the epilogue to shard_step and "
-              "the verify kernel to verify_tiles")
+        _fail(f"[xprof] mesh: the capture did not charge the checked launch to "
+              f"verify_tiles, or the old route ran: {stale}")
 
 
 SHA_WIDTHS = (1, 2048, 8192, 262144)
@@ -2163,14 +2459,13 @@ def _block_device_sha(block, bad_block, height, plain_view, want, bad_want, devi
     """`[block_device_sha]`: the config-5 block through `connect_block` on the
     Python block layer and engine with `device_merkle=True` and a verifier
     with `device_challenge=True`: its result and every input's equal to the
-    native `[block]`'s, with the merkle level, challenge, verify and
-    checksum kernels each launched in the run; then `[block_reject]`'s
+    native `[block]`'s, with the merkle level, challenge and checked verify
+    kernels each launched in the run; then `[block_reject]`'s
     corrupted block, rejected alike. Returns (`connect(verifier)` on this
     path, its launches by kernel)."""
     from bitcoinconsensus_tpu_torch.crypto.torch_backend import TorchSecpVerifier
     from bitcoinconsensus_tpu_torch.models.sigcache import ScriptExecutionCache, SigCache
     from bitcoinconsensus_tpu_torch.models.validate import connect_block
-    from bitcoinconsensus_tpu_torch.ops import verdict_checksum as VC
     from bitcoinconsensus_tpu_torch.ops import verify_tiles as VT
     from bitcoinconsensus_tpu_torch.utils import blockgen as B
 
@@ -2198,19 +2493,17 @@ def _block_device_sha(block, bad_block, height, plain_view, want, bad_want, devi
         return res
 
     res = launches_around("block_device_sha", run)
-    counts = dict(got["sha"], vt_verify_kernel=VT.verify_tiles.launches,
-                  vc_checksum_kernel=VC.verdict_checksum.launches)
+    counts = dict(got["sha"], vt_verify_checked_kernel=VT.verify_tiles_checked.launches)
     bad = connect(verifier, bad_block)
     _line("block_device_sha", ok=res.ok, equal_native=tup(res) == want,
           reject_reason=bad.reason, reject_equal_native=tup(bad) == bad_want,
           ms=f"{got['ms']:.3f}", challenge_lanes=int(verifier.stats["challenge_lanes"]),
           launches=json.dumps({k: counts[k] for k in (
-              "sh_merkle_level_kernel", "sh_challenge_kernel", "vt_verify_kernel",
-              "vc_checksum_kernel")}))
+              "sh_merkle_level_kernel", "sh_challenge_kernel",
+              "vt_verify_checked_kernel")}))
     if tup(res) != want or tup(bad) != bad_want:
         _fail("[block_device_sha]: the device-SHA block path differs from the native block")
-    need = ("sh_merkle_level_kernel", "sh_challenge_kernel", "vt_verify_kernel",
-            "vc_checksum_kernel")
+    need = ("sh_merkle_level_kernel", "sh_challenge_kernel", "vt_verify_checked_kernel")
     if not rehearse and not all(counts[k] > 0 for k in need):
         _fail(f"[block_device_sha]: a kernel of the path was not launched: {counts}")
 
@@ -2228,10 +2521,10 @@ SERVE_CLIENTS, SERVE_TENANTS = 8, 4
 
 
 def _launch_counts():
-    from bitcoinconsensus_tpu_torch.ops import verdict_checksum as VC
+    """(checked verify launches, those that carried the checksum partials)."""
     from bitcoinconsensus_tpu_torch.ops import verify_tiles as VT
 
-    return VT.verify_tiles.launches, VC.verdict_checksum.launches
+    return VT.verify_tiles_checked.launches, VT.verify_tiles_checked.checksummed
 
 
 def _metric_by(name, label):
@@ -3162,7 +3455,7 @@ def _gauntlet_phase(device, sync, launches_around, path_launches, checksum_launc
         os.environ.pop("BITCOINCONSENSUS_TPU_IDX", None)
     packed = native_bridge.prep_pack(sent, v._pad(len(sent)))
     dev = v.to_device(packed)
-    ok_k, nd_k = VT.verify_tiles(*dev)
+    ok_k, nd_k, _ = VT.verify_tiles_checked(*dev)
     ok_r, nd_r = VT.verify_tiles_reference(*dev)
     sync()
     ok_k, nd_k, ok_r, nd_r = (t.cpu() for t in (ok_k, nd_k, ok_r, nd_r))
@@ -3241,7 +3534,7 @@ def _gauntlet_phase(device, sync, launches_around, path_launches, checksum_launc
 
     # -- the gauntlet fault sweep ---------------------------------------------
     t0 = time.perf_counter()
-    n0 = VT.verify_tiles.launches
+    n0 = VT.verify_tiles_checked.launches
     sweep = cli.run_gauntlet_sweep(0, fuzz_cases=n_fuzz, verifier=v)
     sync()
     for t in sweep["trials"]:
@@ -3254,7 +3547,7 @@ def _gauntlet_phase(device, sync, launches_around, path_launches, checksum_launc
     _line("gauntlet_chaos", trials=len(sweep["trials"]),
           held=sum(t["held"] for t in sweep["trials"]),
           wrong_accepts=sum(t["wrong_accepts"] for t in sweep["trials"]),
-          launches=VT.verify_tiles.launches - n0,
+          launches=VT.verify_tiles_checked.launches - n0,
           seconds=f"{time.perf_counter() - t0:.2f}")
     _line("gauntlet_time", seconds=f"{time.perf_counter() - t_phase:.2f}")
     if len(sweep["trials"]) != 10:
@@ -3327,6 +3620,10 @@ def main() -> int:
         _line("ptxas", kernel="vt_verify_kernel", **vt_ptxas,
               dynamic_smem=VT.VERIFY_TILES_CONTRACT.dynamic_smem_bytes(),
               build_s=f"{builds[0].seconds:.2f}")
+        _line("ptxas", kernel="vt_verify_checked_kernel",
+              **_ptxas(builds[0].log, "vt_verify_checked_kernel"),
+              dynamic_smem=VT.VERIFY_TILES_CHECKED_CONTRACT.dynamic_smem_bytes(),
+              build_s=f"{builds[0].seconds:.2f}")
         _line("ptxas", kernel="vc_checksum_kernel",
               **_ptxas(builds[1].log, "vc_checksum_kernel"),
               build_s=f"{builds[1].seconds:.2f}")
@@ -3352,26 +3649,31 @@ def main() -> int:
     if not any(corrupted):
         _fail("the data holds no corrupted input")
     span_records = {}  # each driven path's span records
-    path_launches = {}  # each path's kernel launches, counted around it alone
-    checksum_launches = {}  # and the verdict checksum kernel's
+    path_launches = {}  # each path's checked verify launches, counted around it alone
+    checksum_launches = {}  # and those of them that carried the checksum partials
 
     def launches_around(path, fn):
-        """fn() with both kernels' launch counts set to 0 just before it and
-        read just after; fails if the path never launched the verify kernel,
-        or launched it without the checksum kernel on each dispatch."""
+        """fn() with the verify kernels' and the standalone checksum's launch
+        counts set to 0 just before it and read just after; fails if the
+        path never made the checked verify launch, made one without the
+        checksum partials, or launched the unchecked verify kernel or the
+        standalone checksum kernel (a dispatch is one kernel)."""
         sync()
-        VT.verify_tiles.launches = 0
-        VC.verdict_checksum.launches = 0
+        VT.verify_tiles_checked.launches = VT.verify_tiles_checked.checksummed = 0
+        VT.verify_tiles.launches = VC.verdict_checksum.launches = 0
         out = fn()
         sync()
-        path_launches[path] = VT.verify_tiles.launches
-        checksum_launches[path] = VC.verdict_checksum.launches
+        path_launches[path] = VT.verify_tiles_checked.launches
+        checksum_launches[path] = VT.verify_tiles_checked.checksummed
         if not rehearse and path_launches[path] == 0:
-            _fail(f"the {path} path never launched the verify_tiles kernel")
+            _fail(f"the {path} path never made the checked verify_tiles launch")
         if not rehearse and checksum_launches[path] != path_launches[path]:
-            _fail(f"the {path} path launched the verdict checksum kernel "
-                  f"{checksum_launches[path]} times for {path_launches[path]} "
-                  "dispatches")
+            _fail(f"the {path} path carried the checksum partials in "
+                  f"{checksum_launches[path]} of {path_launches[path]} launches")
+        if VT.verify_tiles.launches or VC.verdict_checksum.launches:
+            _fail(f"the {path} path launched the unchecked verify kernel "
+                  f"{VT.verify_tiles.launches} times and the standalone checksum "
+                  f"{VC.verdict_checksum.launches} times")
         return out
 
     def drive(path, engine, driver="index"):
@@ -3544,9 +3846,19 @@ def main() -> int:
         verifier, py_packed, n_lanes, rng)
     dev = verifier.to_device((f, wo, par, h2, n1, n2, val))
 
-    ok_k, nd_k = VT.verify_tiles(*dev)
-    ok_r, nd_r = VT.verify_tiles_reference(*dev)
+    # The unchecked kernel's own drive: its launches are counted around it,
+    # as the toys'. The plain version is the checked launch's (the plain
+    # verify, then the plain epilogue), one synchronised call timed on the
+    # host clock.
     sync()
+    VT.verify_tiles.launches = 0
+    ok_k, nd_k = VT.verify_tiles(*dev)
+    sync()
+    vt_launches = VT.verify_tiles.launches
+    t_plain = time.perf_counter()
+    ok_r, nd_r, _parts_r = VT.verify_tiles_checked_reference(*dev)
+    sync()
+    checked_plain_ms = (time.perf_counter() - t_plain) * 1e3
     err = max(int((ok_k.int() - ok_r.int()).abs().max()),
               int((nd_k.int() - nd_r.int()).abs().max()))
     _line("compare", lanes=n_lanes, perturbed=int(idx.size), tolerance=0,
@@ -3607,18 +3919,51 @@ def main() -> int:
         if err_w:
             _fail(f"kernel and plain version disagree at {width} lanes")
 
+    epi = _verify_epilogue_phase(tiled, (ok_r, nd_r), items, block_run, device, sync,
+                                 np.random.default_rng([seed, 16]), rehearse)
+    VC.verdict_checksum.launches = 0
     checksum = _checksum_phase(device, rng, rehearse)
+    vc_launches = VC.verdict_checksum.launches
     sha_entries, sha_launches = _sha256_phase(
         device, np.random.default_rng([seed, 256]), rehearse, chal_width,
         (len(sha_ctx["block"].vtx) + 1) // 2)
 
+    # The checked launch's bound: the verify's operations and bytes, with
+    # its epilogue's (about 4 int32 operations a lane; the verdicts as 2
+    # bytes a lane and 12 bytes of partials a warp in place of 8 bytes a
+    # lane of int32 verdicts).
+    c_bytes = (n_lanes * (128 + 5 * 4 + 1 + 2) + 32 * 255 * 2 * 32
+               + 12 * -(-n_lanes // VT.WARP))
+    c_bound_ms, c_bound_by = _bound(c_bytes, int_ops + 4.0 * n_lanes)
     kernels = [{
+        "name": "verify_tiles_checked",
+        "route": "cuda",
+        "source": "bitcoinconsensus_tpu_torch/csrc/verify_tiles.cu",
+        "replaces": "bitcoinconsensus_tpu/ops/pallas_kernel.py:490 with "
+                    "bitcoinconsensus_tpu/crypto/jax_backend.py:379 chained after it "
+                    "(the verify pallas_call and the verdict checksum, one launch)",
+        "launches": launches,
+        "launches_by_path": path_launches,
+        "checksum_launches_by_path": checksum_launches,
+        "max_abs_err": epi["max_abs_err"],
+        "ms": epi["ms"],
+        "plain_ms": checked_plain_ms,
+        "bound_ms": c_bound_ms,
+        "bound_by": c_bound_by,
+        "library_ms": None,
+        "device_ms": epi["device_ms"],
+        "epilogue_marginal_device_ms": epi["epilogue_marginal_device_ms"],
+        "old_sequence_ms": epi["old_sequence_ms"],
+    }, {
         "name": "verify_tiles",
         "route": "cuda",
         "source": "bitcoinconsensus_tpu_torch/csrc/verify_tiles.cu",
         "replaces": "bitcoinconsensus_tpu/ops/pallas_kernel.py:490",
-        "launches": launches,
-        "launches_by_path": path_launches,
+        # Off the dispatch path since the checked launch: the prover's,
+        # [compare]'s, [sweep]'s, [field]'s and [recode]'s kernel, its
+        # launches counted around [compare], as the toys'.
+        "launches": vt_launches,
+        "launches_by_path": {"compare": vt_launches},
         "max_abs_err": err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -3631,8 +3976,10 @@ def main() -> int:
         "source": "bitcoinconsensus_tpu_torch/csrc/verdict_checksum.cu",
         "replaces": "bitcoinconsensus_tpu/crypto/jax_backend.py:379 (an XLA "
                     "program of the reference, not a pallas_call)",
-        "launches": checksum_launches["main_path"],
-        "launches_by_path": checksum_launches,
+        # Off the dispatch path since the checked launch: counted around
+        # its own [checksum] drive.
+        "launches": vc_launches,
+        "launches_by_path": {"checksum": vc_launches},
         **checksum,
     }]
     sha_paths = {"block_device_sha": sha_counts, "merkle": merkle_launches}
@@ -3795,9 +4142,13 @@ def main() -> int:
 
     # -- the mesh, after every phase above, so that those run in the process
     # state they had before this slice -------------------------------------------
+    from bitcoinconsensus_tpu_torch.ops import shard_step as SS
+
+    SS.shard_epilogue.launches = 0
     ss_entry = _shard_step_phase(device, np.random.default_rng([seed, 13]), rehearse)
-    ss_launches, mesh_ctx = _mesh_phase(items, results, block_run, py_sent, device, sync,
-                                        rehearse, path_launches)
+    ss_launches = SS.shard_epilogue.launches
+    mesh_ctx = _mesh_phase(items, results, block_run, py_sent, device, sync, rehearse,
+                           path_launches)
     _mesh_faults_phase(mesh_ctx, device, rehearse)
     _mesh_xprof_phase(mesh_ctx, device, sync, rehearse, out_dir)
 
@@ -3818,11 +4169,13 @@ def main() -> int:
     # run in the process state they had before this slice ---------------------
     _gauntlet_phase(device, sync, launches_around, path_launches, checksum_launches,
                     rehearse)
-    kernels.insert(2, {
+    # Off the mesh's path since the checked launch: counted around its own
+    # [shard_step] drive.
+    kernels.insert(3, {
         "name": "shard_epilogue", "route": "cuda", "source": MESH_SOURCE,
         "replaces": "bitcoinconsensus_tpu/parallel/mesh.py:201 (make_sharded_step's "
                     "local_step, an XLA program of the reference, not a pallas_call)",
-        "launches": ss_launches["mesh_main_path"], "launches_by_path": ss_launches,
+        "launches": ss_launches, "launches_by_path": {"shard_step": ss_launches},
         **ss_entry})
     _line("total", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -284,11 +284,11 @@ def test_verify_batch_engines_agree_on_cuda():
     got = {}
     for engine in ("native", "python"):
         v = TorchSecpVerifier(engine=engine)
-        before = VT.verify_tiles.launches
+        before = VT.verify_tiles_checked.launches
         got[engine] = [(r.ok, r.error, r.script_error) for r in verify_batch(
             items, verifier=v, sig_cache=SigCache(),
             script_cache=ScriptExecutionCache(), engine=engine)]
-        assert VT.verify_tiles.launches > before
+        assert VT.verify_tiles_checked.launches > before
     assert got["native"] == got["python"]
     assert [not g[0] for g in got["native"]] == bad
 
@@ -432,13 +432,13 @@ def test_connect_block_on_cuda_equals_the_cpu(corrupt):
     for device in ("cuda:0", "cpu"):
         view = native_bridge.NativeCoinsView()
         view.add_coins_batch(entries)
-        before = VT.verify_tiles.launches
+        before = VT.verify_tiles_checked.launches
         res = connect_block(block, view, 710_000, pow_limit=B.REGTEST_POW_LIMIT,
                             verifier=TorchSecpVerifier(device=device, min_batch=512,
                                                        pad_step=2048),
                             sig_cache=SigCache(), script_cache=ScriptExecutionCache())
         if device == "cuda:0":
-            assert VT.verify_tiles.launches > before
+            assert VT.verify_tiles_checked.launches > before
         got[device] = (res.ok, res.reason, res.fees, res.sigop_cost, len(view),
                        [(r.ok, r.error, r.script_error) for r in res.input_results])
     assert got["cuda:0"] == got["cpu"]
@@ -514,18 +514,22 @@ def test_verdict_checksum_launcher_refuses_other_launches():
                                        ("torch_backend.verdict", "invert"),
                                        ("torch_backend.dispatch", "raise")])
 def test_guarded_dispatch_on_cuda_absorbs_a_transient_fault(site, kind):
-    """Every dispatch carries sentinels and the checksum kernel; a transient
-    fault costs one retry on the same kernel, a persistent one raises."""
+    """Every dispatch carries sentinels and the checksum partials of its one
+    checked launch; a transient fault costs one retry on the same kernel, a
+    persistent one raises."""
     _need_cuda()
     v = TorchSecpVerifier()
     checks = _checks(40) + [_collision()]
     want = TorchSecpVerifier(device="cpu").verify_checks(checks)
     vt0, vc0 = VT.verify_tiles.launches, VC.verdict_checksum.launches
+    ck0, cs0 = VT.verify_tiles_checked.launches, VT.verify_tiles_checked.checksummed
     with F.inject(F.FaultPlan([F.FaultSpec(site, kind)]), seed=5):
         got = v.verify_checks(checks)
     assert np.array_equal(got, want) and v.stats["retries"] == 1
     assert v.stats["tickets"] == 1 and v.stats["sentinel_lanes"] == 4
-    assert VC.verdict_checksum.launches - vc0 == VT.verify_tiles.launches - vt0 >= 1
+    assert VT.verify_tiles_checked.checksummed - cs0 == \
+        VT.verify_tiles_checked.launches - ck0 >= 1
+    assert VT.verify_tiles.launches == vt0 and VC.verdict_checksum.launches == vc0
     with F.inject(F.FaultPlan([F.FaultSpec(site, kind, count=64)])):
         with pytest.raises(DispatchFailed):
             v.verify_checks(checks)
@@ -536,9 +540,10 @@ def test_guarded_dispatch_on_cuda_absorbs_a_transient_fault(site, kind):
 @pytest.mark.gpu
 def test_capture_charges_the_port_kernels_to_their_regions(tmp_path):
     """A torch.profiler capture around one warmed `verify_batch` on cuda:0
-    charges `vt_verify_kernel` to `verify_tiles` and `vc_checksum_kernel` to
-    `verdict_checksum`, leaves no kernel of the port unattributed, and reads
-    a busy share in (0, 1] with the gaps labelled by host spans."""
+    charges the checked launch, `vt_verify_checked_kernel`, to
+    `verify_tiles`, shows no standalone `vc_checksum_kernel`, leaves no
+    kernel of the port unattributed, and reads a busy share in (0, 1] with
+    the gaps labelled by host spans."""
     from bitcoinconsensus_tpu_torch.obs import xprof
 
     _need_cuda()
@@ -551,12 +556,11 @@ def test_capture_charges_the_port_kernels_to_their_regions(tmp_path):
 
     run()
     rep = xprof.capture_report(run, log_dir=str(tmp_path))
-    assert rep["symbols"]["vt_verify_kernel"] > 0
-    assert rep["symbols"]["vc_checksum_kernel"] > 0
+    assert rep["symbols"]["vt_verify_checked_kernel"] > 0
+    assert not rep["symbols"].get("vc_checksum_kernel")
+    assert not rep["symbols"].get("vt_verify_kernel")
     assert rep["regions"]["verify_tiles"]["seconds"] == \
-        pytest.approx(rep["symbols"]["vt_verify_kernel"])
-    assert rep["regions"]["verdict_checksum"]["seconds"] == \
-        pytest.approx(rep["symbols"]["vc_checksum_kernel"])
+        pytest.approx(rep["symbols"]["vt_verify_checked_kernel"])
     assert not [s for s in rep["unattributed_symbols"]
                 if s.startswith(("vt_", "vc_", "tk_"))]
     assert 0.0 < rep["device_busy_share"] <= 1.0
@@ -777,9 +781,10 @@ def _mesh4(**kw):
 
 @pytest.mark.gpu
 def test_cuda_mesh_equals_the_single_device_verifier():
-    """A 4-entry mesh over cuda:0: each dispatch launches the verify kernel
-    once a shard and the epilogue once, no checksum kernel; verdicts, the
-    block verdict and `verify_batch` equal the single-device verifier's."""
+    """A 4-entry mesh over cuda:0: each dispatch makes one checked verify
+    launch a shard (its partials the shard's checksum and failures) and
+    launches nothing else of the port; verdicts, the block verdict and
+    `verify_batch` equal the single-device verifier's."""
     from bitcoinconsensus_tpu_torch.ops import shard_step as SS
 
     _need_cuda()
@@ -788,13 +793,14 @@ def test_cuda_mesh_equals_the_single_device_verifier():
     checks.append(SigCheck("ecdsa", (pk, sig, hashlib.sha256(b"wrong").digest())))
     want = TorchSecpVerifier().verify_checks(checks)
     v = _mesh4()
-    vt0, ss0, vc0 = (VT.verify_tiles.launches, SS.shard_epilogue.launches,
-                     VC.verdict_checksum.launches)
+    ck0, vt0, ss0, vc0 = (VT.verify_tiles_checked.launches, VT.verify_tiles.launches,
+                          SS.shard_epilogue.launches, VC.verdict_checksum.launches)
     got, verdict = v.verify_checks_with_verdict(checks)
     assert np.array_equal(got, want) and not verdict
     assert v.stats["mesh_dispatches"] == 1 and v.stats["fixups"] == 1
-    assert (VT.verify_tiles.launches - vt0, SS.shard_epilogue.launches - ss0,
-            VC.verdict_checksum.launches - vc0) == (4, 1, 0)
+    assert (VT.verify_tiles_checked.launches - ck0, VT.verify_tiles.launches - vt0,
+            SS.shard_epilogue.launches - ss0,
+            VC.verdict_checksum.launches - vc0) == (4, 0, 0, 0)
     clean = [c for c, w in zip(checks, want) if w]
     got2, verdict2 = v.verify_checks_with_verdict(clean)
     assert got2.all() and verdict2 and v.in_flight == 0
@@ -819,6 +825,170 @@ def test_cuda_mesh_device_loss_evicts_and_continues():
     assert np.array_equal(got2, want) and verdict2 and len(v.last_shard_lanes) == 3
 
 
+# -- the checked launch: the verify kernel with its epilogue -------------------------
+
+
+EPILOGUE_WIDTHS = (1, 31, 63, 64, 65, 2048, 8191)
+
+
+def _port_launches():
+    """Every launch counter of the port's kernel wrappers."""
+    from bitcoinconsensus_tpu_torch.ops import shard_step as SS
+
+    out = {"checked": VT.verify_tiles_checked.launches, "verify": VT.verify_tiles.launches,
+           "checksum": VC.verdict_checksum.launches, "epilogue": SS.shard_epilogue.launches}
+    out.update({k: w.launches for k, w in SH.WRAPPERS.items()})
+    out.update({w.__name__: w.launches for w in K.TOY_WRAPPERS})
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", EPILOGUE_WIDTHS)
+def test_verify_epilogue_matches_the_unchecked_and_standalone_kernels(width):
+    """The checked launch against `vt_verify_tiles`, the standalone checksum
+    kernel and the plain version, bit for bit: verdicts on every lane (the
+    plain version's at up to 65 lanes), the summed partials against
+    `verdict_checksum`, each warp's against `epilogue_reference`."""
+    _need_cuda()
+    v, args = _panel_lanes(width, seed=width + 16)
+    dev = v.to_device(args)
+    before = VT.verify_tiles_checked.launches
+    ok, needs, parts = VT.verify_tiles_checked(*dev)
+    torch.cuda.synchronize()
+    assert VT.verify_tiles_checked.launches == before + 1
+    assert ok.dtype == torch.bool and parts.dtype == torch.int32
+    assert tuple(parts.shape) == (3, -(-width // 32))
+    want_ok, want_needs = VT.verify_tiles(*dev)
+    assert torch.equal(ok, want_ok) and torch.equal(needs, want_needs)
+    if width <= 65:
+        plain = VT.verify_tiles_checked_reference(*dev)
+        assert torch.equal(ok, plain[0]) and torch.equal(needs, plain[1])
+        assert torch.equal(parts.long(), plain[2])
+    count, wsum, fails = VT.epilogue_sums(parts.cpu())
+    assert [count, wsum] == VC.verdict_checksum(ok).cpu().tolist() == \
+        VC.verdict_checksum_reference(ok).cpu().tolist() and fails == 0
+    assert torch.equal(parts.cpu().long(), VT.epilogue_reference(ok, needs)[2].cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,rows", [(1, 8192), (4, 2048), (8, 1024), (4, 16)])
+def test_verify_epilogue_shard_triples_match_the_shard_epilogue(d, rows):
+    """One checked launch a shard into views of a card's group buffers, with
+    a live mask: each shard's summed partials equal the `shard_epilogue`
+    kernel's and its plain version's triple, the verdicts the unchecked
+    kernel's."""
+    from bitcoinconsensus_tpu_torch.ops import shard_step as SS
+
+    _need_cuda()
+    v, args = _panel_lanes(d * rows, seed=d * rows)
+    dev = v.to_device(args)
+    live = torch.from_numpy(np.random.default_rng([d, rows]).random(d * rows) < 0.9).cuda()
+    ok_g = torch.empty(d * rows, dtype=torch.bool, device="cuda")
+    needs_g = torch.empty_like(ok_g)
+    parts = torch.empty((d, 3, -(-rows // 32)), dtype=torch.int32, device="cuda")
+    for s in range(d):
+        sl = slice(s * rows, (s + 1) * rows)
+        got = VT.verify_tiles_checked(*(a[sl] for a in dev), live=live[sl],
+                                      ok_out=ok_g[sl], needs_out=needs_g[sl],
+                                      partials=parts[s])
+        assert got[0].data_ptr() == ok_g[sl].data_ptr()
+        assert got[2].data_ptr() == parts[s].data_ptr()
+    trips = parts.sum(dim=2).T.cpu().tolist()
+    assert trips == SS.shard_epilogue(ok_g, needs_g, live, d).cpu().tolist() == \
+        SS.shard_epilogue_reference(ok_g, needs_g, live, d).cpu().tolist()
+    want_ok, want_needs = VT.verify_tiles(*dev)
+    assert torch.equal(ok_g, want_ok) and torch.equal(needs_g, want_needs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("checksum", ["1", "0"])
+def test_verify_epilogue_one_port_kernel_per_dispatch(checksum, monkeypatch):
+    """A single-card dispatch launches exactly one kernel of the port, the
+    checked launch (with its partials unless the checksum is off), and on
+    the card the profiler sees no other kernel: no `!=`, no checksum. The
+    profiler records a warm-up call first and throws it away: a capture
+    that records at once can lose its first launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    _need_cuda()
+    monkeypatch.setenv("BITCOINCONSENSUS_TPU_CHECKSUM", checksum)
+    v = TorchSecpVerifier()
+    checks = _checks(50)
+    want = v.verify_checks(checks)
+    traces = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: traces.append(p.key_averages())) as prof:
+        for _step in range(2):
+            before, partials0 = _port_launches(), VT.verify_tiles_checked.checksummed
+            d0 = v.stats["dispatches"]
+            got = v.verify_checks(checks)
+            torch.cuda.synchronize()
+            prof.step()
+    after = _port_launches()
+    moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    dispatches = v.stats["dispatches"] - d0
+    assert np.array_equal(got, want) and dispatches == 1
+    assert moved == {"checked": 1}
+    assert VT.verify_tiles_checked.checksummed - partials0 == (checksum == "1")
+    kernels = {e.key.split("(")[0]: e.count for e in traces[-1]
+               if getattr(e, "device_type", None) == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith(("Memcpy", "Memset", "region:"))}
+    assert kernels == {"vt_verify_checked_kernel": 1}, kernels
+
+
+@pytest.mark.gpu
+def test_verify_epilogue_launcher_refuses_other_launches():
+    """`vt_verify_tiles_checked` refuses any grid, thread count, shared size
+    or width other than its contract's, and a missing verdict buffer; what
+    it refuses never runs."""
+    _need_cuda()
+    v, args = _panel_lanes(65, seed=3)
+    dev = v.to_device(args)
+    fn = launch.bind("verify_tiles", "vt_verify_tiles_checked")
+    gtab = VT.gtable_words(dev[0].device)
+    ok = torch.zeros(65, dtype=torch.bool, device="cuda")
+    needs = torch.zeros_like(ok)
+    parts = torch.full((3, 3), -7, dtype=torch.int32, device="cuda")
+    ptrs = [t.data_ptr() for t in dev] + [gtab.data_ptr()]
+    smem = VT.VERIFY_TILES_CHECKED_CONTRACT.dynamic_smem_bytes()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def raw(ok_p, needs_p, n, grid, threads, nbytes):
+        return fn((ctypes.c_int64 * 17)(*ptrs, ok_p, needs_p, 0, parts.data_ptr(), n,
+                                        grid, threads, nbytes, stream))
+
+    good = (ok.data_ptr(), needs.data_ptr())
+    for case in [(*good, 65, 1, 64, smem), (*good, 65, 3, 64, smem),
+                 (*good, 65, 2, 128, smem), (*good, 65, 2, 64, smem - 4),
+                 (*good, VT.MAX_CHECKED_LANES + 64, VT.MAX_CHECKED_LANES // 64 + 1, 64,
+                  smem), (*good, -1, 0, 64, smem),
+                 (0, needs.data_ptr(), 65, 2, 64, smem), (ok.data_ptr(), 0, 65, 2, 64, smem)]:
+        assert raw(*case) != 0, case
+    torch.cuda.synchronize()
+    assert not ok.any() and (parts == -7).all()  # nothing ran
+    assert raw(*good, 65, 2, 64, smem) == 0
+    torch.cuda.synchronize()
+    want_ok, want_needs = VT.verify_tiles(*dev)
+    assert torch.equal(ok, want_ok) and torch.equal(needs, want_needs)
+    assert list(VT.epilogue_sums(parts.cpu()))[:2] == VC.verdict_checksum(ok).cpu().tolist()
+    # ptxas's report of the checked kernel, as of the unchecked one: no
+    # stack frame, no spills, no static shared memory.
+    lines = _build.build("verify_tiles").log.splitlines()
+    at = [i for i, ln in enumerate(lines)
+          if "Function properties for" in ln and "vt_verify_checked_kernel" in ln]
+    assert at, "ptxas -v printed nothing for vt_verify_checked_kernel"
+    props = " ".join(lines[at[0] + 1:at[0] + 3])
+    m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                  r"(\d+) bytes spill loads", props)
+    assert m and (int(m[1]), int(m[2]), int(m[3])) == (0, 0, 0), props
+    m = re.search(r"(\d+) bytes smem", props)
+    assert m is None or int(m[1]) == 0, props
+    assert smem == VT.VERIFY_TILES_CONTRACT.dynamic_smem_bytes() == 96256
+
+
 # -- the serving front end and the cell on the card ------------------------------
 
 
@@ -833,13 +1003,13 @@ def test_verify_server_on_cuda_equals_verify_batch():
     items, _bad = B.mixed_items(256, seed=14, corrupt_rate=0.05)
     want = verify_batch(items, verifier=TorchSecpVerifier(), sig_cache=SigCache(),
                         script_cache=ScriptExecutionCache())
-    VT.verify_tiles.launches = 0
+    VT.verify_tiles_checked.launches = 0
     with VerifyServer(sig_cache=SigCache(), script_cache=ScriptExecutionCache()) as srv:
         assert srv._verifier.device == torch.device("cuda:0")
         pend = [srv.submit(it, tenant=f"t{i % 4}") for i, it in enumerate(items)]
         got = [p.result(timeout=300) for p in pend]
     torch.cuda.synchronize()
-    assert VT.verify_tiles.launches > 0
+    assert VT.verify_tiles_checked.launches > 0
     assert [(r.ok, r.error, r.script_error) for r in got] == \
         [(r.ok, r.error, r.script_error) for r in want]
 
@@ -900,12 +1070,12 @@ def test_gauntlet_diff_fuzz_on_cuda_zero_divergence():
     _need_cuda()
     from bitcoinconsensus_tpu_torch.workloads import run_diff_fuzz
 
-    VT.verify_tiles.launches = 0
+    VT.verify_tiles_checked.launches = 0
     rep = run_diff_fuzz(seed=1, n_cases=12)
     torch.cuda.synchronize()
     assert rep["bit_identical"], rep["divergences"]
     assert rep["cases"] == 12 and rep["engines"] == 3
-    assert VT.verify_tiles.launches > 0
+    assert VT.verify_tiles_checked.launches > 0
 
 
 @pytest.mark.gpu
@@ -913,11 +1083,11 @@ def test_gauntlet_tiny_replay_on_cuda_is_bit_identical_and_warm():
     _need_cuda()
     from bitcoinconsensus_tpu_torch.workloads import ReplayConfig, run_replay
 
-    VT.verify_tiles.launches = VC.verdict_checksum.launches = 0
+    VT.verify_tiles_checked.launches = VT.verify_tiles_checked.checksummed = 0
     rep = run_replay(ReplayConfig(seed=3, n_blocks=2, txs_per_block=2, max_inputs=2))
     torch.cuda.synchronize()
     assert rep["bit_identical"], rep["divergences"]
     assert rep["warmed"] and rep["script_cache_hits"] >= rep["expected_warm_hits"] > 0
     assert rep["device"] == "cuda:0"
-    assert VT.verify_tiles.launches > 0
-    assert VC.verdict_checksum.launches == VT.verify_tiles.launches
+    assert VT.verify_tiles_checked.launches > 0
+    assert VT.verify_tiles_checked.checksummed == VT.verify_tiles_checked.launches

@@ -65,6 +65,7 @@ from bitcoinconsensus_tpu_torch.utils import blockgen as B
 
 from test_parallel import _fd_checks, _mesh_stub_verifier as _ref_stub
 from test_torch_resilience import PlainRows
+from torch_serving_common import checked
 
 torch.set_num_threads(1)
 
@@ -263,8 +264,8 @@ def _stub_verify_tiles(fields, want_odd, parity, has_t2, neg1, neg2, valid):
 
 @pytest.fixture
 def stub(monkeypatch):
-    monkeypatch.setattr(M, "verify_tiles", _stub_verify_tiles)
-    monkeypatch.setattr(TB, "verify_tiles", _stub_verify_tiles)
+    monkeypatch.setattr(M, "verify_tiles_checked", checked(_stub_verify_tiles))
+    monkeypatch.setattr(TB, "verify_tiles_checked", checked(_stub_verify_tiles))
     return _port_stub
 
 
@@ -603,8 +604,8 @@ def test_real_plain_kernels_on_a_cpu_mesh_equal_the_single_device_and_the_oracle
            "tweak": JH.xonly_tweak_add_check}
     oracle = [fns[c.kind](*c.data) for c in checks]
     plain = PlainRows()
-    monkeypatch.setattr(TB, "verify_tiles", plain)
-    monkeypatch.setattr(M, "verify_tiles", plain)
+    monkeypatch.setattr(TB, "verify_tiles_checked", checked(plain))
+    monkeypatch.setattr(M, "verify_tiles_checked", checked(plain))
     v = M.ShardedSecpVerifier(mesh=M.make_mesh(devices=["cpu"] * 4))
     res, verdict = v.verify_checks_with_verdict(checks)
     runs = plain.runs
@@ -618,8 +619,8 @@ def test_real_plain_kernels_on_a_cpu_mesh_equal_the_single_device_and_the_oracle
 @pytest.fixture
 def memo(monkeypatch):
     plain = PlainRows()
-    monkeypatch.setattr(TB, "verify_tiles", plain)
-    monkeypatch.setattr(M, "verify_tiles", plain)
+    monkeypatch.setattr(TB, "verify_tiles_checked", checked(plain))
+    monkeypatch.setattr(M, "verify_tiles_checked", checked(plain))
     return plain
 
 

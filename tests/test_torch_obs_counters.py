@@ -396,9 +396,11 @@ def test_stats_gate_passes_on_the_cpu(monkeypatch, capsys):
     from bitcoinconsensus_tpu_torch.obs import stats
     from bitcoinconsensus_tpu_torch.parallel import mesh as TM
 
+    from torch_serving_common import checked
+
     plain = _PlainRows()
-    monkeypatch.setattr(TB, "verify_tiles", plain)
-    monkeypatch.setattr(TM, "verify_tiles", plain)
+    monkeypatch.setattr(TB, "verify_tiles_checked", checked(plain))
+    monkeypatch.setattr(TM, "verify_tiles_checked", checked(plain))
     monkeypatch.setenv("BITCOINCONSENSUS_TPU_FLIGHT_DIR",
                        os.path.join(os.path.dirname(os.path.dirname(
                            os.path.abspath(__file__))), "build", "flight"))

@@ -69,13 +69,17 @@ def test_kernel_symbol_and_region(name, symbol):
 def test_kernel_regions_name_the_reference_regions():
     assert R.KERNEL_REGIONS["vt_verify_kernel"] == "verify_tiles"
     assert R.KERNEL_REGIONS["vc_checksum_kernel"] == "verdict_checksum"
+    # The verify kernel's checked launch, whose epilogue carries the
+    # checksum's partials, is the verify kernel's region too.
+    assert R.KERNEL_REGIONS["vt_verify_checked_kernel"] == "verify_tiles"
     # The SHA-256 kernels keep the reference's two scopes: the compression,
     # the fixed-length hashes and a merkle level share `sha256_compress`, the
     # challenge has `sighash_prep`. Every other kernel has a region of its own.
     shared = ("sh_compress_kernel", "sh_fixed_kernel", "sh_merkle_level_kernel")
     assert {R.KERNEL_REGIONS[k] for k in shared} == {"sha256_compress"}
     assert R.KERNEL_REGIONS["sh_challenge_kernel"] == "sighash_prep"
-    rest = [v for k, v in R.KERNEL_REGIONS.items() if k not in shared]
+    rest = [v for k, v in R.KERNEL_REGIONS.items()
+            if k not in shared + ("vt_verify_checked_kernel",)]
     assert len(set(rest)) == len(rest) and "sha256_compress" not in rest
 
 

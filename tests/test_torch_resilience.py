@@ -58,6 +58,8 @@ from bitcoinconsensus_tpu_torch.resilience import guards as G
 from bitcoinconsensus_tpu_torch.resilience.degrade import DispatchFailed
 from bitcoinconsensus_tpu_torch.utils import blockgen as B
 
+from torch_serving_common import checked
+
 torch.set_num_threads(1)
 
 CORRUPT_KINDS = ("invert", "flip", "value", "nan", "garbage", "shape")
@@ -98,7 +100,7 @@ _PLAIN = PlainRows()
 @pytest.fixture(scope="module", autouse=True)
 def plain_rows():
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(TB, "verify_tiles", _PLAIN)
+        mp.setattr(TB, "verify_tiles_checked", checked(_PLAIN))
         yield _PLAIN
 
 
@@ -391,11 +393,11 @@ def test_unrecoverable_cuda_error_is_not_retried(monkeypatch):
     err = RuntimeError("CUDA error: an illegal memory access was encountered")
     calls = []
 
-    def broken(*args):
+    def broken(*args, **kw):
         calls.append(1)
         raise err
 
-    monkeypatch.setattr(TB, "verify_tiles", broken)
+    monkeypatch.setattr(TB, "verify_tiles_checked", broken)
     with pytest.raises(DispatchFailed) as e:
         v.verify_checks(CHECKS[:2])
     assert e.value.__cause__ is err and len(calls) == 1 and not v.stats["retries"]

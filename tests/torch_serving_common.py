@@ -9,8 +9,10 @@ cell tests (`tests/test_torch_serving.py`, `test_torch_ingress.py`,
   (ok, Error, ScriptError) of an item, `norm(results)` a result list's;
 - `PlainRows`: the port's `verify_tiles` on CPU tensors with each distinct
   lane row run once, so a rotated sentinel, a retry or a second dispatch of
-  the same checks costs nothing; `patch_plain_rows(monkeypatch)` installs
-  it for a test's verifiers;
+  the same checks costs nothing; `checked(fn)` makes such a lane function
+  the verifier's checked launch (the port's plain epilogue on its
+  verdicts); `patch_plain_rows(monkeypatch)` installs it for a test's
+  verifiers;
 - `ref_host_verifier()`: the JAX package's verifier parked on its host
   rung, as its own cell tests make it, so its dispatches never compile.
 """
@@ -80,8 +82,17 @@ class PlainRows:
 PLAIN = PlainRows()  # shared by every test of these files: one process memo
 
 
+def checked(verify):
+    """`verify_tiles_checked` on CPU tensors over the lane function
+    `verify` ((ok, needs) of the packed 7-tuple): the port's plain epilogue
+    (`epilogue_reference`) on its verdicts."""
+    def run(*args, live=None, ok_out=None, needs_out=None, partials=True):
+        return VT.epilogue_reference(*verify(*args), live, ok_out, needs_out, partials)
+    return run
+
+
 def patch_plain_rows(mp):
-    mp.setattr(TB, "verify_tiles", PLAIN)
+    mp.setattr(TB, "verify_tiles_checked", checked(PLAIN))
     return PLAIN
 
 
