@@ -22,7 +22,7 @@ failure count) is `cuda.shard_step`, the launch contract and body of
 `csrc/shard_step.cu`. The reference's `sha256.compress` and
 `sha256.bip340_challenge` are held over the port's plain versions
 (`ops/sha256.py`, int64 words masked to 32 bits), whose every intermediate
-the prover holds inside int64 and whose words inside [0, 2^32); the four
+the prover holds inside int64 and whose words inside [0, 2^32); the five
 kernels of `csrc/sha256.cu` are `cuda.sha256_*`, their launch contracts.
 
 To register a kernel:
@@ -213,7 +213,7 @@ def _digest(B: int):
     return [[(0, 255)] * B]  # (B, 32) bytes: rows are lanes
 
 
-# The four kernels of csrc/sha256.cu: (entry, contract, argument specs at B
+# The five kernels of csrc/sha256.cu: (entry, contract, argument specs at B
 # lanes, output rows at B lanes).
 SHA_CONTRACTS = (
     ("cuda.sha256_compress", SH.COMPRESS_CONTRACT,
@@ -224,6 +224,8 @@ SHA_CONTRACTS = (
      lambda b: [_u8(b)] * 3, _digest),
     ("cuda.sha256_merkle_level", SH.MERKLE_LEVEL_CONTRACT,
      lambda b: [_u8(b)], lambda b: [[(0, 255)] * ((b + 1) // 2)]),
+    ("cuda.sha256_merkle_tree", SH.MERKLE_TREE_CONTRACT,
+     lambda b: [_u8(b)], lambda b: [[(0, 255)]]),
 )
 
 
@@ -240,7 +242,7 @@ def _sha_contract(name: str) -> interval.Report:
 
 
 def _sha_bodies() -> interval.Report:
-    """The four contracts' bodies (each kernel's plain version over one
+    """The five contracts' bodies (each kernel's plain version over one
     block's window) proven at SHA_BODY_LANES lanes: every int64
     intermediate inside int64, the words inside [0, 2^32)."""
     rep = interval.Report(name="cuda.sha256.bodies")
@@ -268,13 +270,15 @@ def _sha_specs() -> List[KernelSpec]:
         *(KernelSpec(name, lambda name=name: _sha_contract(name),
                      note="launch contract of csrc/sha256.cu at "
                           f"{', '.join(map(str, SHA_WIDTHS))} lanes: one "
-                          "thread per lane, the ragged edge masked")
+                          "thread per lane (the tree: a block a chunk of "
+                          f"{SH.TREE_CHUNK} leaves), the ragged edge masked")
           for name, *_ in SHA_CONTRACTS),
         KernelSpec("cuda.sha256.bodies", _sha_bodies, heavy=True,
-                   note="the four SHA-256 contracts' bodies proven at "
+                   note="the five SHA-256 contracts' bodies proven at "
                         f"{SHA_BODY_LANES} lanes (about 45 s on one core); "
-                        "the merkle level's mutated flag is an atomicOr "
-                        "accumulator outside the windows"),
+                        "the merkle level's mutated flag and the tree's "
+                        "ticket, flag and root are accumulators outside "
+                        "the windows"),
     ]
 
 

@@ -20,8 +20,9 @@ the block-replay north star needs (SURVEY §2.3, §3.5):
 Like the reference, all hashes are held in wire byte order.
 
 A copy of `bitcoinconsensus_tpu/core/block.py`. Its device merkle root,
-`merkle_root_device`, runs the port's SHA-256 kernel level by level
-(`ops/sha256.merkle_level`, `csrc/sha256.cu`) on cuda:0 by default, or on
+`merkle_root_device`, runs the port's merkle tree kernel, the whole tree
+in one launch (`ops/sha256.merkle_tree`, `csrc/sha256.cu`) on cuda:0 by
+default, or on
 the device asked for ("cpu" runs the plain torch version);
 `check_block(device_merkle=True)` or BITCOINCONSENSUS_TPU_DEVICE_MERKLE=1
 selects it, as in the reference.
@@ -163,23 +164,23 @@ def merkle_root(hashes: List[bytes]) -> Tuple[bytes, bool]:
 
 
 def merkle_root_device(hashes: List[bytes], device=None) -> Tuple[bytes, bool]:
-    """`merkle_root` computed on a device: every level is one launch of
-    `ops/sha256.merkle_level` (a lane-parallel double SHA-256 over the pairs,
-    the odd tail duplicated in the kernel), the levels chained on the device
-    and the root and the `mutated` flag read back once, in one copy.
-    Bit-identical to the host version (tests/test_torch_sha256.py), the
-    CVE-2012-2459 flag with the host's semantics included: sibling equality
-    is taken before the odd duplicate, so the synthetic last pair never
-    counts.
+    """`merkle_root` computed on a device: one launch of
+    `ops/sha256.merkle_tree` reduces the whole tree (each block a chunk of
+    leaves in shared memory, the last block to finish the chunk roots), and
+    one copy reads the root and the `mutated` flag back. Bit-identical to
+    the host version (tests/test_torch_sha256.py), the CVE-2012-2459 flag
+    with the host's semantics included: sibling equality is taken before the
+    odd duplicate, so the synthetic last pair never counts. One leaf is its
+    own root: no launch.
 
     `device=None` means cuda:0 and raises where CUDA is not available;
-    `device="cpu"` runs the plain torch version. On a card a launch that
-    fails raises: nothing falls back to the host hash.
+    `device="cpu"` runs the plain torch version (the level loop). On a card
+    a launch that fails raises: nothing falls back to the host hash.
     """
     import numpy as np
     import torch
 
-    from ..ops.sha256 import merkle_level
+    from ..ops.sha256 import merkle_tree, tree_work_bytes
     from ..resilience.inflight import settle_array
 
     if not hashes:
@@ -193,21 +194,19 @@ def merkle_root_device(hashes: List[bytes], device=None) -> Tuple[bytes, bool]:
         device = "cuda:0"
     device = torch.device(device)
     n = len(hashes)
-    # One upload: the leaves, then 36 zero bytes that hold the root (32) and
-    # the flag (4), so one copy reads both back and no fill kernel runs.
-    staged = np.zeros(32 * n + 36, dtype=np.uint8)
+    # One upload: the leaves, then the tree's zeroed work bytes (the root,
+    # the flag, the ticket and a row a chunk), so no fill kernel runs and one
+    # copy reads the root and the flag back.
+    staged = np.zeros(32 * n + tree_work_bytes(n), dtype=np.uint8)
     staged[:32 * n] = np.frombuffer(b"".join(hashes), dtype=np.uint8)
     buf = torch.from_numpy(staged).to(device)
-    level = buf[:32 * n].view(n, 32)
-    out = buf[32 * n:]
-    mutated = out[32:].view(torch.int32)
-    while level.shape[0] > 2:
-        level = merkle_level(level, mutated)
-    if level.shape[0] == 2:
-        merkle_level(level, mutated, out=out[:32].view(1, 32))
+    leaves = buf[:32 * n].view(n, 32)
+    work = buf[32 * n:]
+    if n == 1:
+        work[:32].copy_(leaves[0])
     else:
-        out[:32].copy_(level[0])
-    host = settle_array(out)
+        merkle_tree(leaves, work)
+    host = settle_array(work[:36])
     return host[:32].tobytes(), bool(host[32:].view(np.int32)[0])
 
 

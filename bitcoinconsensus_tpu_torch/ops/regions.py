@@ -55,8 +55,9 @@ REGION_PREFIX = "region:"
 # the region of the reference's sharded step (`parallel/mesh.py:205`). The
 # SHA-256 kernels keep
 # the reference's regions (`ops/sha256.py:79`, `:205`): the compression, the
-# fixed-length hashes and a merkle level all ran inside `sha256_compress`'s
-# scope there, and the challenge inside `sighash_prep`.
+# fixed-length hashes and the merkle levels all ran inside
+# `sha256_compress`'s scope there (the port's tree and its one-level
+# counterpart too), and the challenge inside `sighash_prep`.
 KERNEL_REGIONS: Dict[str, str] = {
     "vt_verify_kernel": "verify_tiles",
     "vt_verify_checked_kernel": "verify_tiles",
@@ -67,6 +68,7 @@ KERNEL_REGIONS: Dict[str, str] = {
     "sh_compress_kernel": "sha256_compress",
     "sh_fixed_kernel": "sha256_compress",
     "sh_merkle_level_kernel": "sha256_compress",
+    "sh_merkle_tree_kernel": "sha256_compress",
     "sh_challenge_kernel": "sighash_prep",
     "tk_positive_kernel": "toy_positive",
     "tk_mul_kernel": "toy_mul",

@@ -16,10 +16,13 @@ it. The public functions keep the reference's names, layouts and dtypes:
 - `bip340_challenge(r32, px32, m32)`: the BIP340 challenge
   tagged(r ‖ px ‖ m) from three `(B, 32)` uint8 tensors, two compressions a
   lane from `CHALLENGE_MIDSTATE`;
-- `merkle_level(level (n, 32) uint8, mutated (1,) int32)`: one level of the
-  txid merkle tree, `(ceil(n/2), 32)`, the odd tail duplicated, sibling
-  equality ORed into `mutated` (the port's own; the reference builds a level
-  from `sha256d_fixed` in `core/block.merkle_root_device`);
+- `merkle_tree(leaves (n, 32) uint8, work=None)`: the whole txid merkle
+  tree in one launch, the root and the CVE-2012-2459 flag in `work` (the
+  port's own; the reference builds each level from `sha256d_fixed` in
+  `core/block.merkle_root_device`);
+- `merkle_level(level (n, 32) uint8, mutated (1,) int32)`: one level of that
+  tree, `(ceil(n/2), 32)`, the odd tail duplicated, sibling equality ORed
+  into `mutated` (on no path: the tree's standalone counterpart);
 - `tag_midstate`, `CHALLENGE_MIDSTATE`, and the helpers `_padding`,
   `_words_from_bytes`, `_bytes_from_words`.
 
@@ -30,8 +33,9 @@ versions compute in int64 with `& 0xFFFFFFFF` after the adds and shift only
 masked, non-negative words: torch's `uint32` has no shifts, adds or `~`.
 `_words_from_bytes` therefore returns its words as int64. Each kernel's
 launch is declared as a `LaunchContract` (`*_CONTRACT`, `fixed_contract`)
-for the prover (`analysis/registry.py`); the merkle level's `mutated` flag
-is an `atomicOr` accumulator outside the contract's windows.
+for the prover (`analysis/registry.py`); the merkle level's `mutated` flag,
+and the tree's ticket, flag and root, are accumulators outside the
+contracts' windows.
 
 Outputs are big-endian digest bytes, equal to hashlib's
 (tests/test_torch_sha256.py).
@@ -57,21 +61,31 @@ __all__ = [
     "tag_midstate",
     "bip340_challenge",
     "merkle_level",
+    "merkle_tree",
+    "tree_work_bytes",
     "CHALLENGE_MIDSTATE",
     "sha256_compress_reference",
     "sha256_fixed_reference",
     "sha256d_fixed_reference",
     "bip340_challenge_reference",
     "merkle_level_reference",
+    "merkle_tree_reference",
     "COMPRESS_CONTRACT",
     "CHALLENGE_CONTRACT",
     "MERKLE_LEVEL_CONTRACT",
+    "MERKLE_TREE_CONTRACT",
     "fixed_contract",
     "THREADS",
+    "FIXED_THREADS",
+    "TREE_CHUNK",
 ]
 
 M32 = 0xFFFFFFFF
 THREADS = 256  # csrc/sha256.cu SH_THREADS: one thread per lane
+FIXED_THREADS = 64  # SH_FIXED_THREADS: sh_fixed_kernel's blocks
+TREE_THREADS = 256  # SH_TREE_THREADS
+TREE_CHUNK = 512  # SH_TREE_CHUNK: the leaves a block of the tree reduces
+TREE_HEADER = 48  # SH_TREE_HEADER: root (32), flag (4), ticket (4), 8 spare
 MAX_LANES = (1 << 31) - 1  # csrc/sha256.cu SH_MAX_LANES
 
 _H0 = (
@@ -252,6 +266,29 @@ def merkle_level_reference(level: torch.Tensor, mutated: torch.Tensor) -> torch.
     return _pair_digests(level)
 
 
+def merkle_tree_reference(leaves: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of `merkle_tree`: the level loop of
+    `merkle_level_reference` over (n >= 1, 32) leaves; (root (32,) uint8,
+    mutated (1,) int32)."""
+    mutated = torch.zeros(1, dtype=torch.int32, device=leaves.device)
+    level = leaves
+    while level.shape[0] > 1:
+        level = merkle_level_reference(level, mutated)
+    return level[0], mutated
+
+
+def _chunk_root(rows: torch.Tensor, height: Optional[int]) -> torch.Tensor:
+    """A chunk's root as the tree kernel's block computes it: levels of
+    `_pair_digests` until one node is left, or `height` levels (a tail
+    chunk's last node paired with itself until then)."""
+    level = rows
+    levels = 0
+    while (level.shape[0] > 1) if height is None else (levels < height):
+        level = _pair_digests(level)
+        levels += 1
+    return level
+
+
 # -- launch contracts ------------------------------------------------------------
 
 def _compress_body(block, state, words):
@@ -275,20 +312,23 @@ COMPRESS_CONTRACT = LaunchContract(
 
 def fixed_contract(length: int, double: bool = False) -> LaunchContract:
     """The launch of `sh_fixed_kernel` for messages of `length` bytes and one
-    midstate for every lane: lane i reads row i of the (B, L) bytes and the
-    (8, 1) midstate column and writes row i of the (B, 32) digests. (A
-    per-lane midstate reads column i of (8, B) instead.)"""
+    midstate for every lane, in blocks of 64 lanes: lane i reads row i of
+    the (B, L) bytes and the (8, 1) midstate column and writes row i of the
+    (B, 32) digests. (A per-lane midstate reads column i of (8, B) instead;
+    a row that does not start 16-byte aligned is read in the aligned 4-byte
+    words that hold it, beyond the window by at most 3 bytes at each end.)"""
     def body(block, data, ms):
         one = sha256_fixed_reference(data, midstate=ms)
         return sha256_fixed_reference(one) if double else one
 
+    T = FIXED_THREADS
     return LaunchContract(
         f"sha256_fixed[{length}]",
-        grid=lambda d, ms: (cdiv(d[0], THREADS),),
-        threads=THREADS,
-        ins=(Window((THREADS, length), lambda b: (THREADS * b[0], 0)),
+        grid=lambda d, ms: (cdiv(d[0], T),),
+        threads=T,
+        ins=(Window((T, length), lambda b: (T * b[0], 0)),
              Window((8, 1), lambda b: (0, 0))),
-        outs=(Window((THREADS, 32), lambda b: (THREADS * b[0], 0)),),
+        outs=(Window((T, 32), lambda b: (T * b[0], 0)),),
         out_arrays=lambda d, ms: (((d[0], 32), torch.uint8),),
         body=body,
         masked_edge=True,
@@ -328,6 +368,30 @@ MERKLE_LEVEL_CONTRACT = LaunchContract(
     outs=(_ROWS,),
     out_arrays=lambda x: (((cdiv(x[0], 2), 32), torch.uint8),),
     body=_merkle_body,
+    masked_edge=True,
+)
+
+
+def _tree_body(block, rows):
+    # Chunk 0 reduces to its root (it is full, or the only chunk); any later
+    # chunk to the chunk's height, its tail paired with itself until then.
+    height = None if block[0] == 0 else TREE_CHUNK.bit_length() - 1
+    return _chunk_root(rows, height)
+
+
+# Block b reads leaf rows [512 b, 512 b + 512) and writes chunk-root row b
+# (the work rows after the header). The ticket, the flag and the root are
+# accumulators outside the windows: every block adds to the ticket and ORs
+# into the flag, and the block that draws the last ticket reduces the chunk
+# roots (in rounds of 512) and writes the root.
+MERKLE_TREE_CONTRACT = LaunchContract(
+    "merkle_tree",
+    grid=lambda x: (cdiv(x[0], TREE_CHUNK),),
+    threads=TREE_THREADS,
+    ins=(Window((TREE_CHUNK, 32), lambda b: (TREE_CHUNK * b[0], 0)),),
+    outs=(Window((1, 32), lambda b: (b[0], 0)),),
+    out_arrays=lambda x: (((cdiv(x[0], TREE_CHUNK), 32), torch.uint8),),
+    body=_tree_body,
     masked_edge=True,
 )
 
@@ -419,7 +483,7 @@ def _fixed(data: torch.Tensor, midstate, prefix_len: int, double: bool) -> torch
         fn = launch.bind("sha256", "sh_fixed")
         launch.call(fn, data.get_device(), data.data_ptr(), L, ms.data_ptr(),
                     ms_cols, prefix_len, int(double), out.data_ptr(), B,
-                    cdiv(B, THREADS), THREADS)
+                    cdiv(B, FIXED_THREADS), FIXED_THREADS)
         sha256_fixed.launches += 1
     return out
 
@@ -428,8 +492,10 @@ def sha256_fixed(data: torch.Tensor, midstate=None, prefix_len: int = 0) -> torc
     """Batched SHA-256 of fixed-length messages: data (..., L) uint8 with a
     static L; `midstate` an optional (8,) or (8, ...) uint32 chaining state
     that already consumed `prefix_len` bytes (a multiple of 64). Returns
-    (..., 32) uint8 digests. CUDA tensors run `sh_fixed_kernel` (or raise);
-    CPU tensors the plain version."""
+    (..., 32) uint8 digests. CUDA tensors run `sh_fixed_kernel` (or raise),
+    which reads 16-byte aligned rows in 16-byte loads and any other layout,
+    a view at an odd address included, in aligned 4-byte words; CPU tensors
+    the plain version."""
     if not data.is_cuda:
         _on_cpu(data, "sha256_fixed")
         return sha256_fixed_reference(data, midstate, prefix_len)
@@ -505,16 +571,60 @@ def merkle_level(level: torch.Tensor, mutated: torch.Tensor,
     return out
 
 
+def tree_work_bytes(n: int) -> int:
+    """Bytes of `merkle_tree`'s work buffer for n leaves: the root, the flag,
+    the ticket and 8 spare bytes, then a 32-byte row a chunk."""
+    return TREE_HEADER + 32 * cdiv(n, TREE_CHUNK)
+
+
+def merkle_tree(leaves: torch.Tensor, work: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The whole merkle tree of (n >= 1, 32) uint8 leaves: (root (32,) uint8,
+    mutated (1,) int32), views of `work` (a zeroed, contiguous uint8 tensor
+    of at least `tree_work_bytes(n)` bytes on the leaves' device, made here
+    when None): bytes [0, 32) the root, [32, 36) the flag. `mutated` is 1
+    when two siblings of a level's first `n_l & ~1` nodes are equal (ORed
+    in: the kernel sets the ticket back to 0, so `work` serves another
+    launch, whose flag is then the OR of both). CUDA
+    tensors run `sh_merkle_tree_kernel`, one launch (or raise; leaves and
+    work 16-byte aligned); CPU tensors the plain version, whose result is
+    written into `work` the same way."""
+    n = leaves.shape[0]
+    if leaves.dim() != 2 or leaves.shape[1] != 32 or n < 1:
+        raise ValueError(f"leaves must be (n >= 1, 32), got {tuple(leaves.shape)}")
+    if work is None:
+        work = torch.zeros(tree_work_bytes(n), dtype=torch.uint8, device=leaves.device)
+    root, flag = work[:32], work[32:36].view(torch.int32)
+    if not leaves.is_cuda:
+        _on_cpu(leaves, "merkle_tree")
+        got, mutated = merkle_tree_reference(leaves)
+        root.copy_(got)
+        flag.copy_(mutated)
+        return root, flag
+    _need(leaves, torch.uint8, "leaves", leaves.device)
+    _need(work, torch.uint8, "work", leaves.device)
+    if work.numel() < tree_work_bytes(n) or (leaves.data_ptr() | work.data_ptr()) % 16:
+        raise ValueError(f"work must hold {tree_work_bytes(n)} bytes, and work "
+                         "and leaves must be 16-byte aligned")
+    fn = launch.bind("sha256", "sh_merkle_tree")
+    launch.call(fn, leaves.get_device(), leaves.data_ptr(), _lanes(n), work.data_ptr(),
+                cdiv(n, TREE_CHUNK), TREE_THREADS)
+    merkle_tree.launches += 1
+    return root, flag
+
+
 sha256_compress.launches = 0
 sha256_fixed.launches = 0
 bip340_challenge.launches = 0
 merkle_level.launches = 0
+merkle_tree.launches = 0
 
-# The four wrappers, by the kernel each launches (chip_smoke and the tests
+# The five wrappers, by the kernel each launches (chip_smoke and the tests
 # set and read their counts together).
 WRAPPERS = {
     "sh_compress_kernel": sha256_compress,
     "sh_fixed_kernel": sha256_fixed,
     "sh_challenge_kernel": bip340_challenge,
     "sh_merkle_level_kernel": merkle_level,
+    "sh_merkle_tree_kernel": merkle_tree,
 }

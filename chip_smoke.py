@@ -81,14 +81,18 @@ Phases, each printing its own lines; any failure exits non-zero:
    the Schnorr lanes hashed on the card, `lane_prep_s` both ways, and the
    host's `tagged_hash` over the same checks; `[merkle]`,
    `merkle_root_device` on the card against the host `merkle_root` (root
-   and flag) at 1 to 16,384 seeded leaves, the block's txids, duplicated
-   sibling pairs and odd tails, both timed; `[block_device_sha]`, the block
-   on the Python block layer and engine with `device_merkle` and
-   `device_challenge`, equal to the native `[block]`, its corrupted twin
-   rejected alike, launching the merkle level, challenge and checked
-   verify kernels; and one more `[xprof]` capture, of that path, which
-   must charge `sh_merkle_level_kernel` to `sha256_compress` and
-   `sh_challenge_kernel` to `sighash_prep`.
+   and flag) at 1 to 262,144 seeded leaves (512 and 513 at a chunk's
+   edge), the block's txids, duplicated sibling pairs (one across two
+   chunk roots) and odd tails, both timed, one tree launch a root and no
+   level launch; then the tree against the old level sequence in turns,
+   by the host clock and on the device, at the block's txids and at
+   262,144 leaves; `[block_device_sha]`, the block on the Python block
+   layer and engine with `device_merkle` and `device_challenge`, equal to
+   the native `[block]`, its corrupted twin rejected alike, launching the
+   merkle tree (once), challenge and checked verify kernels; and one more
+   `[xprof]` capture, of that path, which must charge
+   `sh_merkle_tree_kernel` to `sha256_compress` and `sh_challenge_kernel`
+   to `sighash_prep`.
 4. Lane packing: the native core's packed lanes of the first 8,192 checks
    byte-equal to the Python packers', pad lanes included (`[lane_pack]`,
    both host times). Kernel against its plain version on the card: those
@@ -121,10 +125,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    1 to 32,768 lanes, random, all-true and all-false buffers, with its time
    per call beside the two-call PyTorch equivalent (in turns), its device
    time and its bound at the sweep widths (`[checksum]`). Then `[sha256]`:
-   each of the four SHA-256 kernels against its plain version on the card
-   at 1, 2,048, 8,192 and 262,144 lanes (tolerance 0) and on 256 lanes
-   against hashlib, with its time per call, device time, plain time and
-   bound, and at the width its path gives it.
+   each of the five SHA-256 kernels against its plain version on the card
+   at 1, 2,048, 8,192 and 262,144 lanes (tolerance 0; the fixed hash also
+   on a view one byte past an aligned address, the tree with its depth)
+   and on 256 lanes against hashlib, with its time per call, device time,
+   plain time and bound, and at the width its path gives it.
 5. The kernel prover (`analysis/registry.py`), after the main path so that
    its tracing leaves the main path's timing alone: every non-heavy entry
    must prove, `verify_tiles`'s launch contract included (8,192 and 4,908
@@ -439,26 +444,14 @@ def _timed_turns(fns, reps, rounds, device):
 
 
 def _device_ms(fn, reps, kernel: str):
-    """Mean device time per call of the CUDA kernels whose name holds
-    `kernel`, by torch.profiler over `reps` calls; None (not measured) where
-    the profiler fails or shows no device time for them."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-    except Exception as e:  # an optional measurement: report, do not fail
-        print(f"  profiler unavailable: {type(e).__name__}: {e}", flush=True)
-        return None
-    us = sum(getattr(e, "self_device_time_total", 0.0) for e in events
-             if kernel in e.key)
-    return us / reps / 1e3 if us > 0 else None
+    """Mean device time a launch of the CUDA kernels whose name holds
+    `kernel`, read through `_device_kernels`' capture (a discarded warm-up
+    step of `reps` calls, then `reps` calls); None (not measured) where the
+    profiler fails or shows no device time for them."""
+    got = _device_kernels(fn, reps) or {}
+    hits = [(ms, n) for sym, (ms, n) in got.items() if kernel in sym]
+    launches = sum(n for _, n in hits)
+    return sum(ms * n for ms, n in hits) / launches if launches else None
 
 
 class _ListSink:
@@ -1388,8 +1381,8 @@ def _xprof_phase(items, results, block_run, device, sync, rehearse, out_dir,
     phases, so that the earlier phases run as they did before them), one
     capture of the same block on the device-SHA path (the Python block layer
     with `device_merkle`, a verifier with `device_challenge`), whose merkle
-    level and challenge kernels must be charged to `sha256_compress` and
-    `sighash_prep`. Each report is written to `out_dir`. A capture that
+    tree (one launch) and challenge kernels must be charged to
+    `sha256_compress` and `sighash_prep`. Each report is written to `out_dir`. A capture that
     fails ends the run: this phase is the measurement, not an option."""
     from bitcoinconsensus_tpu_torch.crypto.torch_backend import TorchSecpVerifier
     from bitcoinconsensus_tpu_torch.models.batch import verify_batch
@@ -1436,9 +1429,9 @@ def _xprof_phase(items, results, block_run, device, sync, rehearse, out_dir,
                        if k.startswith(("vt_", "vc_", "sh_", "tk_"))}
         sym = rep["symbols"]
         # A dispatch is one kernel: the checked launch, and on the device-SHA
-        # path the merkle level and challenge kernels besides.
+        # path the merkle tree and challenge kernels besides.
         allowed = {"vt_verify_checked_kernel"} | (
-            {"sh_merkle_level_kernel", "sh_challenge_kernel"}
+            {"sh_merkle_tree_kernel", "sh_challenge_kernel"}
             if name == "block_device_sha" else set())
         others = sorted(set(sym) - allowed)
         _line("xprof", path=name, wall_s=f"{rep['walls_s'][0]:.4f}",
@@ -1466,9 +1459,9 @@ def _xprof_phase(items, results, block_run, device, sync, rehearse, out_dir,
                   "verify_tiles, saw another kernel on the path, or a verdict "
                   "changed under it")
         if name == "block_device_sha" and (
-                not sym.get("sh_merkle_level_kernel") or not sym.get("sh_challenge_kernel")
+                not sym.get("sh_merkle_tree_kernel") or not sym.get("sh_challenge_kernel")
                 or regions.get("sha256_compress", {}).get("seconds")
-                != sym["sh_merkle_level_kernel"]
+                != sym["sh_merkle_tree_kernel"]
                 or regions.get("sighash_prep", {}).get("seconds")
                 != sym["sh_challenge_kernel"]):
             _fail("[xprof] block_device_sha: the SHA-256 kernels were not charged "
@@ -2168,7 +2161,7 @@ SHA_SOURCE = "bitcoinconsensus_tpu_torch/csrc/sha256.cu"
 
 
 def _sha_counts():
-    """The four SHA-256 wrappers' launch counts, by kernel symbol."""
+    """The five SHA-256 wrappers' launch counts, by kernel symbol."""
     from bitcoinconsensus_tpu_torch.ops import sha256 as SH
 
     return {k: w.launches for k, w in SH.WRAPPERS.items()}
@@ -2249,26 +2242,44 @@ def _sha_bound(lanes: int, compressions: int, nbytes: float, constant_blocks: in
     return _bound(nbytes, float(lanes) * per_lane, H100_INSTR_RATE)
 
 
-def _sha256_phase(device, rng, rehearse, chal_width: int, merkle_width: int):
+def _tree_pairs(n: int) -> int:
+    """The pairs the merkle tree of n leaves hashes: ceil(n_l / 2) at each
+    level, the odd tail's self-pair included."""
+    pairs = 0
+    while n > 1:
+        n = (n + 1) // 2
+        pairs += n
+    return pairs
+
+
+def _sha256_phase(device, rng, rehearse, chal_width: int, merkle_width: int,
+                  tree_width: int):
     """`[sha256]`: each kernel of csrc/sha256.cu against its plain version on
-    the card at the sweep widths (1, 2,048, 8,192, 262,144 lanes; tolerance
-    0, every byte compared), and on 256 lanes against hashlib (single and
-    double hashes at six lengths with and without a midstate, challenges,
-    merkle pairs, and a compression of H0 over a padded message). At each
-    width its time per call (CUDA events, the wrapper's host cost included),
-    its device time (torch.profiler, at 8,192 and 262,144 lanes), the plain
-    version's time and its bound: the fewest 32-bit instructions of its
-    compressions over the card's instruction ceiling (3.35e13/s) against its bytes
-    over 3.35 TB/s. Then each at the width
-    its path gives it (the challenge at the main path's first dispatch's
-    Schnorr lanes, a merkle level at the config-5 block's first level; the
-    compression and the fixed hash, on no path, at 8,192). Returns the
-    kernels-line entries by kernel symbol."""
+    the card at the sweep widths (1, 2,048, 8,192, 262,144 lanes; the tree
+    at 1, 4,097 and 262,144 leaves; tolerance 0, every byte compared; the
+    fixed hash also on a view one byte past an aligned address,
+    `sh_fixed_kernel@1`, read in aligned words), and on 256
+    lanes against hashlib (single and double hashes at six lengths with and
+    without a midstate and at three misaligned offsets, challenges, merkle
+    pairs, a 512-leaf tree, and a compression of H0 over a padded message).
+    At each width its time per call (CUDA events, the wrapper's host cost
+    included), its device time (torch.profiler, a launch, from 4,097
+    lanes), the plain version's time (its checked call) and its
+    bound: the fewest 32-bit instructions of its compressions over the
+    card's instruction ceiling (3.35e13/s) against its bytes over 3.35 TB/s
+    (the tree: its pairs at 3,672 instructions and 16 more, with its depth,
+    the levels, and its device time at two leaves beside). Then each at the
+    width its path gives it (the challenge at the main path's first
+    dispatch's Schnorr lanes, the tree at the config-5 block's txids, the
+    merkle level at their first level; the compression and the fixed hash,
+    on no path, at 8,192). Returns the kernels-line entries by kernel
+    symbol."""
     import hashlib
 
     import numpy as np
     import torch
 
+    from bitcoinconsensus_tpu_torch.core.block import merkle_root
     from bitcoinconsensus_tpu_torch.ops import sha256 as SH
     from bitcoinconsensus_tpu_torch.utils.hashes import tagged_hash
 
@@ -2282,28 +2293,50 @@ def _sha256_phase(device, rng, rehearse, chal_width: int, merkle_width: int):
     def words(rows, n):
         return torch.from_numpy(rng.integers(0, 1 << 32, (rows, n), dtype=np.uint32)).to(device)
 
+    def at_offset(t, offset):
+        """t's bytes in a contiguous view `offset` bytes past an aligned one."""
+        buf = torch.zeros(t.numel() + 16, dtype=torch.uint8, device=device)
+        view = buf[offset:offset + t.numel()].view(t.shape)
+        view.copy_(t)
+        return view
+
     def cases(n):
-        """(symbol, kernel call, plain call, bytes, compressions, constant
-        blocks, extra ops): the fixed hash of 64-byte rows and a merkle pair
-        each hash a padding-only block; a merkle lane compares 8 words."""
+        """(label, symbol, kernel call, plain call, hashes, bytes,
+        compressions, constant blocks, extra ops): the fixed hash of 64-byte
+        rows and a merkle pair each hash a padding-only block; a merkle pair
+        compares 8 words; the tree hashes `_tree_pairs(n)` pairs."""
         st, bl = words(8, n), words(16, n)
         pairs = u8(n, 64)
+        odd = at_offset(pairs, 1)
         r, p, m = u8(n, 32), u8(n, 32), u8(n, 32)
         level = u8(2 * n, 32)
         if n > 1:
             level[2 * n - 1] = level[2 * n - 2]  # the last sibling pair equal
         flag = torch.zeros(1, dtype=torch.int32, device=device)
         pflag = torch.zeros(1, dtype=torch.int32, device=device)
+        leaves = u8(n, 32)
+        if n > 1:
+            leaves[1] = leaves[0]  # the first sibling pair equal
+        work = torch.zeros(SH.tree_work_bytes(n), dtype=torch.uint8, device=device)
         return [
-            ("sh_compress_kernel", lambda: SH.sha256_compress(st, bl),
-             lambda: SH.sha256_compress_reference(st, bl), n * 32 * 4.0, 1, 0, 0),
-            ("sh_fixed_kernel", lambda: SH.sha256d_fixed(pairs),
-             lambda: SH.sha256d_fixed_reference(pairs), n * 96.0 + 32, 3, 1, 0),
-            ("sh_challenge_kernel", lambda: SH.bip340_challenge(r, p, m),
-             lambda: SH.bip340_challenge_reference(r, p, m), n * 128.0, 2, 0, 0),
-            ("sh_merkle_level_kernel", lambda: (SH.merkle_level(level, flag), flag),
+            ("sh_compress_kernel", "sh_compress_kernel",
+             lambda: SH.sha256_compress(st, bl),
+             lambda: SH.sha256_compress_reference(st, bl), n, n * 32 * 4.0, 1, 0, 0),
+            ("sh_fixed_kernel", "sh_fixed_kernel", lambda: SH.sha256d_fixed(pairs),
+             lambda: SH.sha256d_fixed_reference(pairs), n, n * 96.0 + 32, 3, 1, 0),
+            ("sh_fixed_kernel@1", "sh_fixed_kernel", lambda: SH.sha256d_fixed(odd),
+             lambda: SH.sha256d_fixed_reference(odd), n, n * 96.0 + 32, 3, 1, 0),
+            ("sh_challenge_kernel", "sh_challenge_kernel",
+             lambda: SH.bip340_challenge(r, p, m),
+             lambda: SH.bip340_challenge_reference(r, p, m), n, n * 128.0, 2, 0, 0),
+            ("sh_merkle_level_kernel", "sh_merkle_level_kernel",
+             lambda: (SH.merkle_level(level, flag), flag),
              lambda: (SH.merkle_level_reference(level, pflag), pflag),
-             n * 96.0 + 4, 3, 1, 16),
+             n, n * 96.0 + 4, 3, 1, 16),
+            ("sh_merkle_tree_kernel", "sh_merkle_tree_kernel",
+             lambda: SH.merkle_tree(leaves, work),
+             lambda: SH.merkle_tree_reference(leaves),
+             _tree_pairs(n), n * 32.0 + 36, 3, 1, 16),
         ]
 
     def differing(a, b) -> int:
@@ -2312,28 +2345,52 @@ def _sha256_phase(device, rng, rehearse, chal_width: int, merkle_width: int):
         return sum(int((x.cpu().numpy().view(np.uint8)
                         != y.cpu().numpy().view(np.uint8)).sum()) for x, y in zip(a, b))
 
+    def checked(kern, plain):
+        """(differing bytes, the plain call's ms): one call of each, the
+        plain one timed by the host clock, synchronised."""
+        got = kern()
+        sync()
+        t0 = time.perf_counter()
+        want = plain()
+        sync()
+        return differing(got, want), (time.perf_counter() - t0) * 1e3
+
     _sha_zero()
     t_phase = time.perf_counter()
     widths = (1, 64) if rehearse else SHA_WIDTHS
     total_diff = 0
-    for n in widths:
-        for sym, kern, plain, nbytes, comps, const, extra in cases(n):
-            got = kern()
-            want = plain()
-            sync()
-            diff = differing(got, want)
+    two = u8(2, 32)
+    two_work = torch.zeros(SH.tree_work_bytes(2), dtype=torch.uint8, device=device)
+    two_leaf_ms = None if rehearse else _device_ms(
+        lambda: SH.merkle_tree(two, two_work), 20, "sh_merkle_tree_kernel")
+
+    def tree_depth(n):
+        """The tree's depth beside its bound: its levels, and its device
+        time at two leaves (one level)."""
+        return dict(levels=(n - 1).bit_length(), two_leaf_device_ms=json.dumps(two_leaf_ms))
+
+    # The tree sweeps its own widths (its plain version pays seconds a
+    # width): one leaf, 4,097 (nine chunks, a ragged tail) and 262,144; the
+    # block's txids come with the path widths below.
+    tree_widths = (1, 64) if rehearse else (1, 4097, 262144)
+    for n in sorted(set(widths) | set(tree_widths)):
+        for label, sym, kern, plain, hashes, nbytes, comps, const, extra in cases(n):
+            if n not in (tree_widths if sym == "sh_merkle_tree_kernel" else widths):
+                continue
+            diff, p_ms = checked(kern, plain)
             total_diff += diff
             ms = _timed(kern, 1 if rehearse else 20, device)
-            p_ms = _timed(plain, 1, device)
-            dev_ms = None if rehearse or n not in (8192, 262144) else \
+            dev_ms = None if rehearse or n not in (4097, 8192, 262144) else \
                 _device_ms(kern, 20, sym)
-            b_ms, b_by = _sha_bound(n, comps, nbytes, const, extra)
-            _line("sha256", kernel=sym, lanes=n, tolerance=0, differing_bytes=diff,
+            b_ms, b_by = _sha_bound(hashes, comps, nbytes, const, extra)
+            depth = tree_depth(n) if sym == "sh_merkle_tree_kernel" else {}
+            _line("sha256", kernel=label, lanes=n, tolerance=0, differing_bytes=diff,
                   ms=f"{ms:.5f}", device_ms=json.dumps(dev_ms), plain_ms=f"{p_ms:.4f}",
                   bound_ms=f"{b_ms:.3g}", bound_by=b_by,
-                  bound_share=f"{b_ms / (dev_ms or ms):.4f}")
+                  bound_share=f"{b_ms / (dev_ms or ms):.4f}", **depth)
     # 256 lanes against hashlib: lengths across the padding boundaries, with
-    # and without the TapSighash midstate; the challenge; merkle pairs.
+    # and without the TapSighash midstate, and misaligned; the challenge;
+    # merkle pairs; a tree.
     n = 256
     sample_diff = 0
     th = hashlib.sha256(b"TapSighash").digest()
@@ -2348,6 +2405,12 @@ def _sha256_phase(device, rng, rehearse, chal_width: int, merkle_width: int):
             h = hashlib.sha256(host[i].tobytes()).digest()
             sample_diff += (one[i].tobytes() != h) + (two[i].tobytes() != hashlib.sha256(h).digest())
             sample_diff += tag[i].tobytes() != hashlib.sha256(th + th + host[i].tobytes()).digest()
+    for offset, length in ((1, 64), (2, 55), (3, 119)):
+        data = u8(n, length)
+        host = data.cpu().numpy()
+        two = SH.sha256d_fixed(at_offset(data, offset)).cpu().numpy()
+        sample_diff += sum(two[i].tobytes() != hashlib.sha256(hashlib.sha256(
+            host[i].tobytes()).digest()).digest() for i in range(n))
     r, p, m = u8(n, 32), u8(n, 32), u8(n, 32)
     chal = SH.bip340_challenge(r, p, m).cpu().numpy()
     rh, ph, mh = (x.cpu().numpy() for x in (r, p, m))
@@ -2359,6 +2422,9 @@ def _sha256_phase(device, rng, rehearse, chal_width: int, merkle_width: int):
     lh = level.cpu().numpy()
     sample_diff += sum(lv[j].tobytes() != hashlib.sha256(hashlib.sha256(
         lh[2 * j].tobytes() + lh[2 * j + 1].tobytes()).digest()).digest() for j in range(n))
+    root, flag = SH.merkle_tree(level)
+    sample_diff += (root.cpu().numpy().tobytes(), bool(flag.item())) != \
+        merkle_root([x.tobytes() for x in lh])
     msg = rng.integers(0, 256, 55, dtype=np.uint8).tobytes()
     blk = np.frombuffer(msg + SH._padding(55), dtype=">u4").astype(np.uint32)
     h0 = np.asarray(SH._H0, dtype=np.uint32)[:, None]
@@ -2377,20 +2443,20 @@ def _sha256_phase(device, rng, rehearse, chal_width: int, merkle_width: int):
     # Each kernel at the width its path gives it: the kernels line's numbers.
     at = {"sh_compress_kernel": 8192, "sh_fixed_kernel": 8192,
           "sh_challenge_kernel": max(chal_width, 1),
-          "sh_merkle_level_kernel": max(merkle_width, 1)}
+          "sh_merkle_level_kernel": max(merkle_width, 1),
+          "sh_merkle_tree_kernel": max(tree_width, 1)}
     entries = {}
     for sym, width in at.items():
-        sym_case = next(c for c in cases(width) if c[0] == sym)
-        _, kern, plain, nbytes, comps, const, extra = sym_case
-        err = differing(kern(), plain())
-        fns = [kern]
-        ms = _timed_turns(fns, 1 if rehearse else 200, 1 if rehearse else 7, device)[0]
-        p_ms = _timed(plain, 1 if rehearse else 3, device)
+        _, _, kern, plain, hashes, nbytes, comps, const, extra = next(
+            c for c in cases(width) if c[0] == sym)
+        err, p_ms = checked(kern, plain)
+        ms = _timed_turns([kern], 1 if rehearse else 200, 1 if rehearse else 7, device)[0]
         dev_ms = None if rehearse else _device_ms(kern, 50, sym)
-        b_ms, b_by = _sha_bound(width, comps, nbytes, const, extra)
+        b_ms, b_by = _sha_bound(hashes, comps, nbytes, const, extra)
         _line("sha256", kernel=sym, path_lanes=width, max_abs_err=err, ms=f"{ms:.5f}",
               device_ms=json.dumps(dev_ms), plain_ms=f"{p_ms:.4f}",
-              bound_ms=f"{b_ms:.3g}", bound_by=b_by)
+              bound_ms=f"{b_ms:.3g}", bound_by=b_by,
+              **(tree_depth(width) if sym == "sh_merkle_tree_kernel" else {}))
         if err:
             _fail(f"[sha256]: {sym} disagrees with its plain version at {width} lanes")
         entries[sym] = dict(lanes=width, max_abs_err=err, ms=ms, plain_ms=p_ms,
@@ -2399,23 +2465,52 @@ def _sha256_phase(device, rng, rehearse, chal_width: int, merkle_width: int):
     return entries, launches
 
 
+def _level_sequence_root(hashes, device):
+    """The merkle root as `merkle_root_device` took it before the tree
+    kernel: one upload, one `merkle_level` launch a level, one readback."""
+    import numpy as np
+    import torch
+
+    from bitcoinconsensus_tpu_torch.ops import sha256 as SH
+
+    n = len(hashes)
+    staged = np.zeros(32 * n + 36, dtype=np.uint8)
+    staged[:32 * n] = np.frombuffer(b"".join(hashes), dtype=np.uint8)
+    buf = torch.from_numpy(staged).to(device)
+    level, out = buf[:32 * n].view(n, 32), buf[32 * n:]
+    mutated = out[32:].view(torch.int32)
+    while level.shape[0] > 2:
+        level = SH.merkle_level(level, mutated)
+    SH.merkle_level(level, mutated, out=out[:32].view(1, 32))
+    host = out.cpu().numpy()
+    return host[:32].tobytes(), bool(host[32:].view(np.int32)[0])
+
+
 def _merkle_phase(device, rng, block_txids, rehearse):
     """`[merkle]`: `merkle_root_device` on the card against the port's host
-    `merkle_root` (root and `mutated` flag equal) at 1, 2, 3, 2,047, 4,096,
-    4,097 and 16,384 seeded leaves, the config-5 block's 400 txids, a
-    duplicated sibling pair (at the start, deep in a 4,097-leaf set, and as
-    two equal subtrees) and odd tails equal to their neighbour (not a
-    mutation); each timed by the host clock, the device's including the
-    upload and the one readback: best of 3. Returns the level launches of
-    the phase."""
+    `merkle_root` (root and `mutated` flag equal) at 1, 2, 3, 512, 513,
+    2,047, 4,096, 4,097, 16,384 and 262,144 seeded leaves, the config-5
+    block's txids, a duplicated sibling pair (at the start, deep in a
+    4,097-leaf set, as two equal subtrees, and as two equal chunk roots) and
+    odd tails equal to their neighbour (not a mutation); each timed by the
+    host clock, the device's including the upload and the one readback:
+    best of 3. Every root of two or more leaves must be one tree launch, and
+    no level launch. Then, at the block's txids and at 262,144 leaves, the
+    tree against the old level sequence (a `merkle_level` launch a level)
+    in turns: the whole root by the host clock, and the launches alone on
+    leaves already on the card by CUDA events and on the device. Returns
+    the tree launches of the phase's sets."""
     import numpy as np
+    import torch
 
     from bitcoinconsensus_tpu_torch.core.block import merkle_root, merkle_root_device
+    from bitcoinconsensus_tpu_torch.ops import sha256 as SH
 
     def leaves(n):
         return [r.tobytes() for r in rng.integers(0, 256, (n, 32), dtype=np.uint8)]
 
-    sizes = (1, 2, 3, 40) if rehearse else (1, 2, 3, 2047, 4096, 4097, 16384)
+    sizes = (1, 2, 3, 40) if rehearse else \
+        (1, 2, 3, 512, 513, 2047, 4096, 4097, 16384, 262144)
     sets = [(str(n), leaves(n)) for n in sizes]
     sets.append(("config5_txids", list(block_txids)))
     sets.append(("dup_pair", [b"\x11" * 32] * 2 + [b"\x22" * 32, b"\x33" * 32]))
@@ -2424,13 +2519,17 @@ def _merkle_phase(device, rng, block_txids, rehearse):
     sets.append(("dup_deep", deep))
     sub = leaves(8)
     sets.append(("dup_subtree", sub[:4] * 2))
+    half = leaves(SH.TREE_CHUNK if not rehearse else 8)
+    sets.append(("dup_chunk_roots", half * 2))  # chunks 0 and 1 equal
     sets.append(("odd_tail_equal", [b"\x44" * 32] + [b"\x55" * 32] * 2))
     odd = leaves(4097 if not rehearse else 41)
     odd[-1] = odd[-2]
     sets.append(("odd_tail_equal_4097", odd))
     dev = None if device.type == "cuda" else device
     _sha_zero()
+    t_phase = time.perf_counter()
     bad = []
+    roots = 0
     for name, hs in sets:
         want = merkle_root(hs)
         d_times, h_times = [], []
@@ -2441,16 +2540,60 @@ def _merkle_phase(device, rng, block_txids, rehearse):
             t0 = time.perf_counter()
             merkle_root(hs)
             h_times.append(time.perf_counter() - t0)
+        roots += 3 * (len(hs) > 1)
         _line("merkle", leaves=len(hs), set=name, equal=got == want, mutated=got[1],
               device_ms=f"{min(d_times) * 1e3:.4f}", host_ms=f"{min(h_times) * 1e3:.4f}")
         if got != want:
             bad.append(name)
         if name.startswith("dup") != want[1]:
             bad.append(f"{name}: flag {want[1]}")
-    launches = _sha_counts()["sh_merkle_level_kernel"]
-    _line("merkle", sets=len(sets), differing=len(bad), level_launches=launches)
-    if bad or (not rehearse and launches == 0):
+    counts = _sha_counts()
+    launches = counts["sh_merkle_tree_kernel"]
+    _line("merkle", sets=len(sets), differing=len(bad), roots=roots,
+          tree_launches=launches, level_launches=counts["sh_merkle_level_kernel"])
+    if bad:
         _fail(f"[merkle]: the device root or flag differs from the host's: {bad}")
+    if not rehearse and (launches != roots or counts["sh_merkle_level_kernel"]):
+        _fail(f"[merkle]: {launches} tree launches for {roots} roots, "
+              f"{counts['sh_merkle_level_kernel']} level launches")
+    # The tree against the level sequence, in turns.
+    for name, hs in (("config5_txids", list(block_txids)),
+                     ("262144", leaves(262144 if not rehearse else 64))):
+        n = len(hs)
+        want = merkle_root(hs)
+        if _level_sequence_root(hs, device) != want:
+            _fail(f"[merkle]: the level sequence's root differs at {name}")
+        host_tree, host_seq = _timed_turns(
+            [lambda: merkle_root_device(hs, dev), lambda: _level_sequence_root(hs, device)],
+            1 if rehearse else 10 if n < 10000 else 2, 1 if rehearse else 4, device)
+        on_card = torch.from_numpy(np.frombuffer(b"".join(hs), dtype=np.uint8)
+                                   .reshape(n, 32).copy()).to(device)
+        work = torch.zeros(SH.tree_work_bytes(n), dtype=torch.uint8, device=device)
+        flag = torch.zeros(1, dtype=torch.int32, device=device)
+
+        def tree():
+            SH.merkle_tree(on_card, work)
+
+        def seq():
+            level = on_card
+            while level.shape[0] > 1:
+                level = SH.merkle_level(level, flag)
+
+        ev_tree, ev_seq = _timed_turns([tree, seq], 1 if rehearse else 50,
+                                       1 if rehearse else 4, device)
+        d_tree = None if rehearse else _device_kernels(tree, 10)
+        d_seq = None if rehearse else _device_kernels(seq, 10)
+
+        def per_call(d, sym):
+            return None if not d or sym not in d else d[sym][0] * d[sym][1]
+
+        _line("merkle", turns=name, leaves=n, order="tree,levels,levels,tree",
+              host_ms_tree=f"{host_tree:.4f}", host_ms_levels=f"{host_seq:.4f}",
+              events_ms_tree=f"{ev_tree:.5f}", events_ms_levels=f"{ev_seq:.5f}",
+              device_ms_tree=json.dumps(per_call(d_tree, "sh_merkle_tree_kernel")),
+              device_ms_levels=json.dumps(per_call(d_seq, "sh_merkle_level_kernel")),
+              level_launches=(n - 1).bit_length(), tree_launches=1)
+    _line("merkle", seconds=f"{time.perf_counter() - t_phase:.2f}")
     return launches
 
 
@@ -2459,8 +2602,9 @@ def _block_device_sha(block, bad_block, height, plain_view, want, bad_want, devi
     """`[block_device_sha]`: the config-5 block through `connect_block` on the
     Python block layer and engine with `device_merkle=True` and a verifier
     with `device_challenge=True`: its result and every input's equal to the
-    native `[block]`'s, with the merkle level, challenge and checked verify
-    kernels each launched in the run; then `[block_reject]`'s
+    native `[block]`'s, with the merkle tree launched once (and no merkle
+    level), the challenge and checked verify kernels launched in the run;
+    then `[block_reject]`'s
     corrupted block, rejected alike. Returns (`connect(verifier)` on this
     path, its launches by kernel)."""
     from bitcoinconsensus_tpu_torch.crypto.torch_backend import TorchSecpVerifier
@@ -2499,13 +2643,16 @@ def _block_device_sha(block, bad_block, height, plain_view, want, bad_want, devi
           reject_reason=bad.reason, reject_equal_native=tup(bad) == bad_want,
           ms=f"{got['ms']:.3f}", challenge_lanes=int(verifier.stats["challenge_lanes"]),
           launches=json.dumps({k: counts[k] for k in (
-              "sh_merkle_level_kernel", "sh_challenge_kernel",
+              "sh_merkle_tree_kernel", "sh_merkle_level_kernel", "sh_challenge_kernel",
               "vt_verify_checked_kernel")}))
     if tup(res) != want or tup(bad) != bad_want:
         _fail("[block_device_sha]: the device-SHA block path differs from the native block")
-    need = ("sh_merkle_level_kernel", "sh_challenge_kernel", "vt_verify_checked_kernel")
-    if not rehearse and not all(counts[k] > 0 for k in need):
-        _fail(f"[block_device_sha]: a kernel of the path was not launched: {counts}")
+    need = ("sh_merkle_tree_kernel", "sh_challenge_kernel", "vt_verify_checked_kernel")
+    if not rehearse and (not all(counts[k] > 0 for k in need)
+                         or counts["sh_merkle_tree_kernel"] != 1
+                         or counts["sh_merkle_level_kernel"]):
+        _fail(f"[block_device_sha]: a kernel of the path was not launched, or the "
+              f"root was not one tree launch: {counts}")
 
     def connect_tup(v):
         return tup(connect(v))
@@ -3628,7 +3775,7 @@ def main() -> int:
               **_ptxas(builds[1].log, "vc_checksum_kernel"),
               build_s=f"{builds[1].seconds:.2f}")
         for sym in ("sh_compress_kernel", "sh_fixed_kernel", "sh_challenge_kernel",
-                    "sh_merkle_level_kernel"):
+                    "sh_merkle_level_kernel", "sh_merkle_tree_kernel"):
             _line("ptxas", kernel=sym, **_ptxas(builds[2].log, sym),
                   build_s=f"{builds[2].seconds:.2f}")
         _line("ptxas", kernel="ss_epilogue_kernel",
@@ -3926,7 +4073,7 @@ def main() -> int:
     vc_launches = VC.verdict_checksum.launches
     sha_entries, sha_launches = _sha256_phase(
         device, np.random.default_rng([seed, 256]), rehearse, chal_width,
-        (len(sha_ctx["block"].vtx) + 1) // 2)
+        (len(sha_ctx["block"].vtx) + 1) // 2, len(sha_ctx["block"].vtx))
 
     # The checked launch's bound: the verify's operations and bytes, with
     # its epilogue's (about 4 int32 operations a lane; the verdicts as 2
@@ -3989,8 +4136,11 @@ def main() -> int:
         "sh_challenge_kernel": {
             "challenge_path": chal_launches,
             "block_device_sha": sha_paths["block_device_sha"]["sh_challenge_kernel"]},
-        "sh_merkle_level_kernel": {
-            "block_device_sha": sha_paths["block_device_sha"]["sh_merkle_level_kernel"],
+        # Off every path since the tree: counted around [sha256], as the
+        # compression's.
+        "sh_merkle_level_kernel": {"sha256": sha_launches["sh_merkle_level_kernel"]},
+        "sh_merkle_tree_kernel": {
+            "block_device_sha": sha_paths["block_device_sha"]["sh_merkle_tree_kernel"],
             "merkle": sha_paths["merkle"]},
     }
     for sym, name, line in (
@@ -3999,9 +4149,12 @@ def main() -> int:
             ("sh_challenge_kernel", "bip340_challenge",
              "bitcoinconsensus_tpu/ops/sha256.py:206"),
             ("sh_merkle_level_kernel", "merkle_level",
+             "bitcoinconsensus_tpu/core/block.py:158 (one level)"),
+            ("sh_merkle_tree_kernel", "merkle_tree",
              "bitcoinconsensus_tpu/core/block.py:158")):
-        # The compression and the fixed hash run on no path of the system:
-        # their launches are counted around the [sha256] drive, as the toys'.
+        # The compression, the fixed hash and the merkle level run on no path
+        # of the system: their launches are counted around the [sha256]
+        # drive, as the toys'.
         first = next(iter(by_path[sym].values()))
         kernels.append({
             "name": name, "route": "cuda", "source": SHA_SOURCE,

@@ -600,7 +600,8 @@ def _digests(t):
 @pytest.mark.gpu
 @pytest.mark.parametrize("width", [1, 255, 256, 257, 4097])
 def test_sha256_kernels_match_plain_versions_and_hashlib(width):
-    """Each of csrc/sha256.cu's four kernels against its plain version on the
+    """csrc/sha256.cu's compression, fixed hash, challenge and merkle level
+    kernels against their plain versions on the
     card (tolerance 0) and against hashlib on a sample of lanes, each launch
     counted on its wrapper."""
     _need_cuda()
@@ -665,9 +666,62 @@ def test_sha256_launchers_refuse_other_launches():
                         out.data_ptr(), lanes, grid, threads)
     fixed = launch.bind("sha256", "sh_fixed")
     ms = torch.zeros((8, 1), dtype=torch.uint32, device="cuda")
-    with pytest.raises(RuntimeError, match="CUDA error"):  # prefix_len % 64
-        launch.call(fixed, 0, x.data_ptr(), 32, ms.data_ptr(), 1, 32, 0,
-                    out.data_ptr(), 300, 2, 256)
+    for prefix, grid, threads in ((32, 5, 64), (0, 2, 256), (0, 4, 64)):
+        with pytest.raises(RuntimeError, match="CUDA error"):  # prefix_len % 64, grid
+            launch.call(fixed, 0, x.data_ptr(), 32, ms.data_ptr(), 1, prefix, 0,
+                        out.data_ptr(), 300, grid, threads)
+    tree = launch.bind("sha256", "sh_merkle_tree")
+    work = torch.zeros(SH.tree_work_bytes(300) + 16, dtype=torch.uint8, device="cuda")
+    for n, grid, threads, off in ((300, 2, 256, 0), (300, 1, 128, 0), (0, 0, 256, 0),
+                                  (300, 1, 256, 4)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            launch.call(tree, 0, x.data_ptr(), n, work.data_ptr() + off, grid, threads)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_sha256d_fixed_on_a_misaligned_view_matches_hashlib(offset):
+    """A contiguous (B, L) view that starts `offset` bytes past an aligned
+    address hashes right on the card: the kernel reads it in aligned words
+    and byte-permutes, launched once a call like the aligned rows."""
+    _need_cuda()
+    rng = np.random.default_rng(100 + offset)
+    width = 257
+    for length in (0, 1, 32, 55, 56, 64, 80, 119, 200):
+        host = _u8(rng, width, length)
+        buf = torch.zeros(width * length + 64, dtype=torch.uint8, device="cuda")
+        data = buf[offset:offset + width * length].view(width, length)
+        data.copy_(torch.from_numpy(host))
+        assert data.is_contiguous() and (length == 0 or data.data_ptr() % 4 == offset)
+        before = SH.sha256_fixed.launches
+        out = _digests(SH.sha256d_fixed(data))
+        assert SH.sha256_fixed.launches == before + 1
+        assert out == _digests(SH.sha256d_fixed_reference(data.cpu()))
+        for i in (0, width // 2, width - 1):
+            want = hashlib.sha256(hashlib.sha256(host[i].tobytes()).digest()).digest()
+            assert out[i] == want, (length, i)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 2, 513, 4097])
+def test_merkle_tree_kernel_matches_plain_version(n):
+    """`merkle_tree` on the card (one launch, any number of chunks and a
+    ragged tail chunk) against `merkle_tree_reference`, root and flag."""
+    _need_cuda()
+    rng = np.random.default_rng(n)
+    leaves = _u8(rng, n, 32)
+    if n > 4:
+        leaves[n - 1] = leaves[n - 2]  # the odd tail equal to its neighbour: no flag
+    for dup in (None, 600 if n > 600 else 0):
+        if dup is not None and n > 1:
+            leaves[dup + 1] = leaves[dup]
+        dev = torch.from_numpy(leaves).cuda()
+        before = SH.merkle_tree.launches
+        root, flag = SH.merkle_tree(dev)
+        assert SH.merkle_tree.launches == before + 1
+        want_root, want_flag = SH.merkle_tree_reference(torch.from_numpy(leaves))
+        assert bytes(root.cpu().numpy()) == bytes(want_root.numpy())
+        assert flag.item() == want_flag.item() == int(dup is not None and n > 1)
 
 
 @pytest.mark.gpu
@@ -676,13 +730,20 @@ def test_merkle_root_device_on_cuda_matches_the_host():
 
     _need_cuda()
     rng = np.random.default_rng(77)
-    sets = [[bytes(_u8(rng, 32)) for _ in range(n)] for n in (1, 2, 3, 5, 33, 4097)]
+    sets = [[bytes(_u8(rng, 32)) for _ in range(n)]
+            for n in (1, 2, 3, 5, 33, 512, 513, 4097)]
     sets.append([b"\x11" * 32, b"\x11" * 32, b"\x22" * 32, b"\x33" * 32])
     sets.append([b"\x44" * 32, b"\x55" * 32, b"\x55" * 32])
+    across = [bytes(_u8(rng, 32)) for _ in range(1024)]
+    across[512:] = across[:512]  # two equal chunk roots: siblings one round up
+    sets.append(across)
     for leaves in sets:
-        before = SH.merkle_level.launches
+        before = SH.merkle_tree.launches, SH.merkle_level.launches
         assert merkle_root_device(leaves) == merkle_root(leaves)
-        assert SH.merkle_level.launches - before == (len(leaves) - 1).bit_length()
+        # One tree launch a root of two or more leaves, no level launch.
+        assert (SH.merkle_tree.launches - before[0],
+                SH.merkle_level.launches - before[1]) == (int(len(leaves) > 1), 0)
+    assert merkle_root(across)[1]
     assert merkle_root_device([]) == (b"\x00" * 32, False)
 
 
@@ -725,7 +786,8 @@ def test_connect_block_with_device_sha_on_cuda_equals_the_native_block(corrupt):
     dev = connect_block(block, plain, 710_000, engine="python", device_merkle=True,
                         verifier=TorchSecpVerifier(engine="python",
                                                    device_challenge=True), **kw)
-    assert SH.merkle_level.launches > before["sh_merkle_level_kernel"]
+    assert SH.merkle_tree.launches > before["sh_merkle_tree_kernel"]
+    assert SH.merkle_level.launches == before["sh_merkle_level_kernel"]
     assert SH.bip340_challenge.launches > before["sh_challenge_kernel"]
 
     def tup(res):

@@ -73,9 +73,11 @@ def test_kernel_regions_name_the_reference_regions():
     # checksum's partials, is the verify kernel's region too.
     assert R.KERNEL_REGIONS["vt_verify_checked_kernel"] == "verify_tiles"
     # The SHA-256 kernels keep the reference's two scopes: the compression,
-    # the fixed-length hashes and a merkle level share `sha256_compress`, the
-    # challenge has `sighash_prep`. Every other kernel has a region of its own.
-    shared = ("sh_compress_kernel", "sh_fixed_kernel", "sh_merkle_level_kernel")
+    # the fixed-length hashes, the merkle tree and a merkle level share
+    # `sha256_compress`, the challenge has `sighash_prep`. Every other kernel
+    # has a region of its own.
+    shared = ("sh_compress_kernel", "sh_fixed_kernel", "sh_merkle_level_kernel",
+              "sh_merkle_tree_kernel")
     assert {R.KERNEL_REGIONS[k] for k in shared} == {"sha256_compress"}
     assert R.KERNEL_REGIONS["sh_challenge_kernel"] == "sighash_prep"
     rest = [v for k, v in R.KERNEL_REGIONS.items()

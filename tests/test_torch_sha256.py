@@ -134,7 +134,8 @@ def test_helpers_equal_the_reference():
 
 def test_contracts_plain_versions_equal_the_wrappers_at_a_ragged_width():
     """`run_contract` cuts each kernel's launch into its blocks of 256 lanes
-    (a ragged second block at 300) and must give the wrapper's result."""
+    (64 for the fixed hash; a ragged last block at 300) and must give the
+    wrapper's result."""
     rng = np.random.default_rng(21)
     n = 300
     state = torch.from_numpy(rng.integers(0, 1 << 32, (8, n), dtype=np.uint32))
@@ -233,6 +234,10 @@ def test_cuda_source_constants_equal_the_module():
     assert table("SH_H0") == list(SH._H0)
     assert table("SH_CHALLENGE_MIDSTATE") == [int(x) for x in JSH.CHALLENGE_MIDSTATE]
     assert f"#define SH_THREADS {SH.THREADS}" in text
+    assert f"#define SH_FIXED_THREADS {SH.FIXED_THREADS}" in text
+    assert f"#define SH_TREE_THREADS {SH.TREE_THREADS}" in text
+    assert f"#define SH_TREE_CHUNK {SH.TREE_CHUNK}" in text
+    assert f"#define SH_TREE_HEADER {SH.TREE_HEADER}" in text
 
 
 # -- the merkle root ----------------------------------------------------------------------
